@@ -1,0 +1,63 @@
+"""BSpMM — binary sparse (FRDC adjacency) x dense matmul (reference:
+``repro/core/bspmm.py``).
+
+Four variants ``BSpMM.<X>B<O>`` (out = Adj_eff @ X):
+  * FBF / FBB : fp activations; exact for factorized adjacencies (column
+                scales fold into X, row scales apply after, elided when O==B).
+  * BBF / BBB : ±1 activations through the trinary popc dot product; the
+                paper's binary aggregation approximation.
+
+The aggregation stages run in ``kernels.ops``: ``bspmm_fp`` (the fp FRDC
+kernel) and ``bspmm_bits`` in counts mode (Algorithm 1); each binary output
+goes through the BIN kernel.
+"""
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+from ..kernels import ops
+from .binarize import BinTensor, bin_op
+from .frdc import FRDCMatrix
+
+BSPMM_VARIANTS = ("FBF", "FBB", "BBF", "BBB")
+TRINARY_DEFAULT = "s3_two_popc"
+
+
+def bspmm(adj: FRDCMatrix, x: Union[torch.Tensor, BinTensor], variant: str,
+          trinary_mode: str = TRINARY_DEFAULT, out_scale: bool = True):
+    """Dispatch a BSpMM variant. ``x`` fp (N,F) for F??, BinTensor for B??."""
+    if variant not in BSPMM_VARIANTS:
+        raise ValueError(f"unknown BSpMM variant {variant!r}")
+    xa, _, op = variant
+
+    if xa == "F":
+        full = ops.bspmm_fp(adj, x)
+        n_feat = x.shape[-1]
+    else:
+        if not isinstance(x, BinTensor):
+            raise TypeError(f"BSpMM.{variant} takes a BinTensor activation")
+        n_feat = x.n
+        counts = ops.bspmm_bits(adj, x.packed, n_feat, binarize=False,
+                                trinary_mode=trinary_mode)
+        counts = counts[:, :n_feat].to(torch.float32)
+        if op == "F":
+            # the paper's approximation: positive scales re-applied as a
+            # global mean factor after the bit aggregation (§3.1.2); copied
+            # from the reference as it is, not padding-invariant
+            full = counts * x.scale.mean()
+            if adj.row_scale is not None:
+                full = full * adj.row_scale[:, None]
+            if adj.col_scale is not None:
+                full = full * adj.col_scale.mean()
+        else:
+            full = counts   # every scale is positive -> elided by BIN
+
+    if op == "F":
+        return full
+    scale = full.abs().mean(dim=-1, keepdim=True) if out_scale \
+        else full.new_ones((full.shape[0], 1))
+    return BinTensor(packed=bin_op(full[:, :n_feat].contiguous(), axis=-1),
+                     scale=scale, n=n_feat)
+

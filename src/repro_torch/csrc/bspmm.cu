@@ -1,0 +1,319 @@
+// FRDC binary-sparse x dense aggregation: the paper's Algorithm 1 (packed
+// +-1 activations) and its fp counterpart.
+//
+// Replaces the Pallas TPU kernels repro/kernels/bspmm_kernel.py:bspmm_bits
+// (_bits_kernel, 1D grid) and bspmm_kernel.py:bspmm_fp (_fp_kernel, 1D grid).
+//
+// Work split. The TPU kernels walk every group on a sequential grid and
+// flush a row on its last nonzero group. Here a warp takes one work item:
+// at most `chunk` consecutive groups of one tile-row (4 output rows), taken
+// from grp_ptr. item_ptr (R+1 entries, built by the caller) gives each
+// tile-row max(1, ceil(groups / chunk)) items, so a power-law hub row is
+// spread over many warps instead of serialising the launch on one. A row
+// with one item stores its result directly. A row with several items
+// stores per-item partial sums to `scratch`; the warp that finishes last
+// (an atomic ticket per row, after a __threadfence) adds the partials in
+// item order and stores the row, so the result does not depend on which
+// warp finishes when. Consequences the design relies on:
+//   * a tile-row with no groups stores 0 counts / 0.0, and in binarize mode
+//     sign(0) = +1 bits with the tail masked (the TPU prefill);
+//   * pad_frdc bucket groups past grp_ptr[-1] are never visited;
+//   * neighbour rows at or past the activation's row count read as 0, so x
+//     needs no padding to a multiple of 4 rows (their adjacency bits are 0).
+//
+// bspmm_bits, per group and per feature word w (Steps 2-5):
+//   lane k loads neighbour word x[col_idx[g, k/4]*4 + k%4, w];
+//   the 8 tiles are OR-reduced into 4 adjacency words (Step 3);
+//   32 __ballot_sync calls transpose the 32x32 bit block, lane f keeping
+//   ballot f, whose bit k is neighbour k's bit of feature w*32+f (Step 4).
+//   Bits are LSB-first, so no __brev is needed;
+//   lane f accumulates the trinary popc for the 4 rows (Step 5):
+//   s3 = 2*popc(a & b) - popc(a), s2 = popc(a & b) - popc(a & ~b).
+// bspmm_fp: lanes over 32 features at a time; per group the warp starts all
+// gathers of set adjacency columns (one 128-byte slice of a neighbour row
+// each) before adding them to the rows of the tile that have the bit.
+// Column scales are folded into x and the row scale is applied by the
+// caller.
+// Bound on H100: bytes for both (group arrays, gathered activations,
+// output); the arithmetic is a few operations per adjacency bit.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarpsPerBlock = 8;
+constexpr int kTile = 4;
+constexpr int kGroup = 8;
+constexpr int kGroupsPerLoad = 32 / kGroup;  // tiles of 4 groups per load
+
+struct Item {
+  int row;    // tile-row
+  int g0;     // first group
+  int g1;     // one past the last group
+  int first;  // first item of the row
+  int count;  // items of the row
+};
+
+// Warp `w`'s item: the tile-row r with item_ptr[r] <= w < item_ptr[r+1].
+__device__ __forceinline__ bool find_item(const int32_t* __restrict__ item_ptr,
+                                          const int32_t* __restrict__ grp_ptr,
+                                          int n_tile_rows, int chunk, long long w,
+                                          Item* it) {
+  if (w >= item_ptr[n_tile_rows]) return false;
+  int lo = 0, hi = n_tile_rows;  // invariant: item_ptr[lo] <= w < item_ptr[hi]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (item_ptr[mid] <= w) lo = mid; else hi = mid;
+  }
+  it->row = lo;
+  it->first = item_ptr[lo];
+  it->count = item_ptr[lo + 1] - it->first;
+  const int g_end = grp_ptr[lo + 1];
+  it->g0 = grp_ptr[lo] + (int)(w - it->first) * chunk;
+  it->g1 = min(it->g0 + chunk, g_end);
+  return true;
+}
+
+// After this warp stored its partial: true for the warp that completes the
+// row (it then reads every partial of the row).
+__device__ __forceinline__ bool last_of_row(int32_t* row_done, int row,
+                                            int count, int lane) {
+  __threadfence();
+  __syncwarp();
+  int ticket = 0;
+  if (lane == 0) ticket = atomicAdd(&row_done[row], 1);
+  ticket = __shfl_sync(kFull, ticket, 0);
+  const bool last = ticket == count - 1;
+  if (last) __threadfence();
+  return last;
+}
+
+__device__ __forceinline__ uint32_t adjacency_word(uint32_t tile, int lane,
+                                                   int slot_group, int i) {
+  // lanes of `slot_group` hold its 8 tiles; row i's 4 bits of tile t go to
+  // bits t*4 .. t*4+3
+  const uint32_t part = (lane / kGroup == slot_group)
+                            ? ((tile >> (i * kTile)) & 0xFu)
+                                  << ((lane % kGroup) * kTile)
+                            : 0u;
+  return __reduce_or_sync(kFull, part);
+}
+
+__global__ void bspmm_bits_kernel(const int32_t* __restrict__ item_ptr,
+                                  const int32_t* __restrict__ grp_ptr,
+                                  const int32_t* __restrict__ tiles,
+                                  const int32_t* __restrict__ col_idx,
+                                  const uint32_t* __restrict__ x,
+                                  int32_t* __restrict__ out_counts,
+                                  uint32_t* __restrict__ out_bits,
+                                  int32_t* scratch, int32_t* row_done,
+                                  int n_tile_rows, int chunk, int n_x_rows,
+                                  int wf, int n_feat, int binarize, int s2) {
+  const int lane = threadIdx.x & 31;
+  const long long w_id =
+      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  Item it;
+  if (!find_item(item_ptr, grp_ptr, n_tile_rows, chunk, w_id, &it)) return;
+  const int width = wf * 32;
+  const size_t out_row = (size_t)it.row * kTile;
+  const bool single = it.count == 1;
+  for (int w = 0; w < wf; ++w) {
+    int acc[kTile] = {0, 0, 0, 0};
+    for (int gb = it.g0; gb < it.g1; gb += kGroupsPerLoad) {
+      // one load brings the tiles and column ids of 4 groups
+      const int n_g = min(kGroupsPerLoad, it.g1 - gb);
+      const bool in = lane / kGroup < n_g;
+      const size_t idx = (size_t)gb * kGroup + lane;
+      const uint32_t my_tile = in ? (uint32_t)tiles[idx] : 0u;
+      const int my_col = in ? col_idx[idx] : 0;
+      uint32_t xk[kGroupsPerLoad];
+#pragma unroll
+      for (int q = 0; q < kGroupsPerLoad; ++q) {
+        const int col = __shfl_sync(kFull, my_col, q * kGroup + (lane >> 2));
+        const long long row = (long long)col * kTile + (lane & 3);
+        xk[q] = (q < n_g && row < n_x_rows) ? x[row * wf + w] : 0u;
+      }
+#pragma unroll
+      for (int q = 0; q < kGroupsPerLoad; ++q) {
+        if (q >= n_g) break;  // uniform across the warp
+        uint32_t a[kTile];
+#pragma unroll
+        for (int i = 0; i < kTile; ++i)
+          a[i] = adjacency_word(my_tile, lane, q, i);
+        uint32_t bt = 0u;
+#pragma unroll
+        for (int f = 0; f < 32; ++f) {
+          const uint32_t b = __ballot_sync(kFull, (xk[q] >> f) & 1u);
+          if (lane == f) bt = b;
+        }
+#pragma unroll
+        for (int i = 0; i < kTile; ++i) {
+          if (s2)
+            acc[i] += __popc(a[i] & bt) - __popc(a[i] & ~bt);
+          else
+            acc[i] += 2 * __popc(a[i] & bt) - __popc(a[i]);
+        }
+      }
+    }
+    if (!single) {
+      int32_t* part = scratch + (size_t)w_id * kTile * width;
+#pragma unroll
+      for (int i = 0; i < kTile; ++i) part[i * width + w * 32 + lane] = acc[i];
+      continue;
+    }
+    if (binarize) {
+      const bool tail = (w == wf - 1) && (n_feat % 32);
+      const uint32_t keep = tail ? (1u << (n_feat % 32)) - 1u : kFull;
+#pragma unroll
+      for (int i = 0; i < kTile; ++i) {
+        const uint32_t word = __ballot_sync(kFull, acc[i] >= 0) & keep;
+        if (lane == 0) out_bits[(out_row + i) * wf + w] = word;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kTile; ++i)
+        out_counts[(out_row + i) * width + (size_t)w * 32 + lane] = acc[i];
+    }
+  }
+  if (single || !last_of_row(row_done, it.row, it.count, lane)) return;
+  for (int w = 0; w < wf; ++w) {
+    int acc[kTile] = {0, 0, 0, 0};
+    for (int k = 0; k < it.count; ++k) {
+      const int32_t* part = scratch + (size_t)(it.first + k) * kTile * width;
+#pragma unroll
+      for (int i = 0; i < kTile; ++i)
+        acc[i] += __ldcg(part + i * width + w * 32 + lane);
+    }
+    if (binarize) {
+      const bool tail = (w == wf - 1) && (n_feat % 32);
+      const uint32_t keep = tail ? (1u << (n_feat % 32)) - 1u : kFull;
+#pragma unroll
+      for (int i = 0; i < kTile; ++i) {
+        const uint32_t word = __ballot_sync(kFull, acc[i] >= 0) & keep;
+        if (lane == 0) out_bits[(out_row + i) * wf + w] = word;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kTile; ++i)
+        out_counts[(out_row + i) * width + (size_t)w * 32 + lane] = acc[i];
+    }
+  }
+}
+
+__global__ void bspmm_fp_kernel(const int32_t* __restrict__ item_ptr,
+                                const int32_t* __restrict__ grp_ptr,
+                                const int32_t* __restrict__ tiles,
+                                const int32_t* __restrict__ col_idx,
+                                const float* __restrict__ x,
+                                float* __restrict__ out, float* scratch,
+                                int32_t* row_done, int n_tile_rows, int chunk,
+                                int n_x_rows, int f) {
+  const int lane = threadIdx.x & 31;
+  const long long w_id =
+      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  Item it;
+  if (!find_item(item_ptr, grp_ptr, n_tile_rows, chunk, w_id, &it)) return;
+  const size_t out_row = (size_t)it.row * kTile;
+  const bool single = it.count == 1;
+  float* part = scratch + (size_t)w_id * kTile * f;
+  for (int c0 = 0; c0 < f; c0 += 32) {
+    const int col = c0 + lane;
+    const bool ok = col < f;
+    float acc[kTile] = {0.f, 0.f, 0.f, 0.f};
+    for (int gb = it.g0; gb < it.g1; gb += kGroupsPerLoad) {
+      const int n_g = min(kGroupsPerLoad, it.g1 - gb);
+      const bool in = lane / kGroup < n_g;
+      const size_t idx = (size_t)gb * kGroup + lane;
+      const int my_tile = in ? tiles[idx] : 0;
+      const int my_col = in ? col_idx[idx] : 0;
+      for (int q = 0; q < n_g; ++q) {
+        uint32_t tile[kGroup];
+        float v[kGroup * kTile];
+#pragma unroll
+        for (int t = 0; t < kGroup; ++t) {
+          tile[t] = (uint32_t)__shfl_sync(kFull, my_tile, q * kGroup + t);
+          const int tcol = __shfl_sync(kFull, my_col, q * kGroup + t);
+#pragma unroll
+          for (int j = 0; j < kTile; ++j) {
+            const long long row = (long long)tcol * kTile + j;
+            const bool hit = ((tile[t] >> j) & 0x1111u) != 0u;
+            v[t * kTile + j] =
+                (hit && ok && row < n_x_rows) ? x[row * f + col] : 0.f;
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < kGroup; ++t)
+#pragma unroll
+          for (int j = 0; j < kTile; ++j)
+#pragma unroll
+            for (int i = 0; i < kTile; ++i)
+              if ((tile[t] >> (i * kTile + j)) & 1u) acc[i] += v[t * kTile + j];
+      }
+    }
+    if (ok) {
+#pragma unroll
+      for (int i = 0; i < kTile; ++i) {
+        if (single)
+          out[(out_row + i) * f + col] = acc[i];
+        else
+          part[i * f + col] = acc[i];
+      }
+    }
+  }
+  if (single || !last_of_row(row_done, it.row, it.count, lane)) return;
+  for (int c0 = 0; c0 < f; c0 += 32) {
+    const int col = c0 + lane;
+    if (col >= f) break;
+    float acc[kTile] = {0.f, 0.f, 0.f, 0.f};
+    for (int k = 0; k < it.count; ++k) {
+      const float* p = scratch + (size_t)(it.first + k) * kTile * f;
+#pragma unroll
+      for (int i = 0; i < kTile; ++i) acc[i] += __ldcg(p + i * f + col);
+    }
+#pragma unroll
+    for (int i = 0; i < kTile; ++i) out[(out_row + i) * f + col] = acc[i];
+  }
+}
+
+unsigned blocks_for(long long n_warps) {
+  return (unsigned)((n_warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
+}
+
+}  // namespace
+
+// item_ptr: (R+1,) int32; max_items: an upper bound of item_ptr[R] (the
+// grid size); scratch: max_items * 4 * (wf*32) int32; row_done: R zeros.
+extern "C" int bspmm_bits(const void* item_ptr, const void* grp_ptr,
+                          const void* tiles, const void* col_idx, const void* x,
+                          void* out, void* scratch, void* row_done,
+                          int n_tile_rows, long long max_items, int chunk,
+                          int n_x_rows, int wf, int n_feat, int binarize,
+                          int s2, void* stream) {
+  if (n_tile_rows > 0 && wf > 0 && max_items > 0) {
+    bspmm_bits_kernel<<<blocks_for(max_items), kWarpsPerBlock * 32, 0,
+                        (cudaStream_t)stream>>>(
+        (const int32_t*)item_ptr, (const int32_t*)grp_ptr,
+        (const int32_t*)tiles, (const int32_t*)col_idx, (const uint32_t*)x,
+        (int32_t*)out, (uint32_t*)out, (int32_t*)scratch, (int32_t*)row_done,
+        n_tile_rows, chunk, n_x_rows, wf, n_feat, binarize, s2);
+  }
+  return (int)cudaGetLastError();
+}
+
+// scratch: max_items * 4 * f floats; row_done: R zeros.
+extern "C" int bspmm_fp(const void* item_ptr, const void* grp_ptr,
+                        const void* tiles, const void* col_idx, const void* x,
+                        void* out, void* scratch, void* row_done,
+                        int n_tile_rows, long long max_items, int chunk,
+                        int n_x_rows, int f, void* stream) {
+  if (n_tile_rows > 0 && f > 0 && max_items > 0) {
+    bspmm_fp_kernel<<<blocks_for(max_items), kWarpsPerBlock * 32, 0,
+                      (cudaStream_t)stream>>>(
+        (const int32_t*)item_ptr, (const int32_t*)grp_ptr,
+        (const int32_t*)tiles, (const int32_t*)col_idx, (const float*)x,
+        (float*)out, (float*)scratch, (int32_t*)row_done, n_tile_rows, chunk,
+        n_x_rows, f);
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,82 @@
+"""repro_torch.core.bitops held bit-exact against repro.core.bitops."""
+import numpy as np
+import pytest
+
+from torch_lazy import lazy, require_torch
+
+require_torch()
+torch = lazy("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import bitops as jb  # noqa: E402
+tb = lazy("repro_torch.core.bitops")
+
+jax.config.update("jax_platform_name", "cpu")
+
+
+def _t(words_u32) -> "torch.Tensor":
+    """numpy/JAX uint32 words -> the port's int32 bit-view."""
+    return torch.from_numpy(np.array(words_u32, np.uint32).view(np.int32))
+
+
+def _u32(t) -> np.ndarray:
+    return t.numpy().view(np.uint32)
+
+
+def _words(rng, *shape):
+    return rng.integers(0, 2 ** 32, size=shape, dtype=np.uint64).astype(np.uint32)
+
+
+@pytest.mark.parametrize("shape,axis", [((3, 1), -1), ((3, 31), -1),
+                                        ((2, 70), -1), ((70, 5), 0),
+                                        ((2, 3, 65), 1)])
+def test_pack_unpack_sign_match_reference(shape, axis):
+    rng = np.random.default_rng(sum(shape))
+    bits = rng.integers(0, 2, size=shape)
+    want = np.asarray(jb.pack_bits(bits, axis=axis))
+    got = tb.pack_bits(torch.from_numpy(bits), axis=axis)
+    np.testing.assert_array_equal(_u32(got), want)
+    n = shape[axis]
+    np.testing.assert_array_equal(
+        tb.unpack_bits(got, n, axis=axis).numpy(),
+        np.asarray(jb.unpack_bits(want, n, axis=axis)))
+    x = rng.standard_normal(shape).astype(np.float32)
+    x.flat[0] = 0.0          # sign(0) = +1 in both
+    x.flat[-1] = -0.0
+    np.testing.assert_array_equal(
+        _u32(tb.sign_bits(torch.from_numpy(x), axis=axis)),
+        np.asarray(jb.sign_bits(jnp.asarray(x), axis=axis)))
+    np.testing.assert_array_equal(
+        tb.unpack_pm1(got, n, axis=axis).numpy(),
+        np.asarray(jb.unpack_pm1(want, n, axis=axis)))
+
+
+@pytest.mark.parametrize("n_bits", [1, 31, 32, 33, 200])
+def test_word_dots_match_reference(n_bits):
+    rng = np.random.default_rng(n_bits)
+    a = np.asarray(jb.pack_bits(rng.integers(0, 2, (4, n_bits))))
+    b = np.asarray(jb.pack_bits(rng.integers(0, 2, (4, n_bits))))
+    ta, tb_ = _t(a), _t(b)
+    for got, want in [
+            (tb.xnor_dot(ta, tb_, n_bits), jb.xnor_dot(a, b, n_bits)),
+            (tb.trinary_dot_s2(ta, tb_), jb.trinary_dot_s2(a, b)),
+            (tb.trinary_dot_s3(ta, tb_), jb.trinary_dot_s3(a, b)),
+            (tb.bmm_xnor_words(ta, tb_, n_bits),
+             jb.bmm_xnor_words(a, b, n_bits))]:
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_full_width_words_and_popcount():
+    """All-ones / high-bit words exercise the int32 bit-view sign handling."""
+    rng = np.random.default_rng(1)
+    w = _words(rng, 6, 32)
+    w[0] = 0xFFFFFFFF
+    w[1] = 0x80000000
+    np.testing.assert_array_equal(
+        tb.popcount(tb.as_u32(_t(w))).numpy(),
+        np.asarray(jb.popcount(jnp.asarray(w))))
+    np.testing.assert_array_equal(_u32(tb.bit_transpose_32(_t(w))),
+                                  np.asarray(jb.bit_transpose_32(w)))
+

@@ -1,0 +1,61 @@
+"""The port stands alone: nothing under src/repro_torch/ and nothing in
+chip_smoke.py imports JAX or the reference package, and chip_smoke.py
+refuses to run without a CUDA device or outside a checkout."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+
+
+def _imported(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_jax_or_reference_imports():
+    files = _port_files()
+    assert len(files) > 10
+    bad = {str(p.relative_to(ROOT)): m for p in files for m in _imported(p)
+           if m.split(".")[0] in FORBIDDEN}
+    assert not bad, bad
+
+
+def test_importing_the_port_loads_no_jax():
+    pytest.importorskip("torch")
+    code = ("import sys, repro_torch.models.gnn, repro_torch.kernels.ops; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_chip_smoke_fails_without_card_or_checkout(tmp_path):
+    """No CUDA device: exit non-zero and print no result. Alone in a
+    directory: the same."""
+    torch = pytest.importorskip("torch")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    lone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", lone)
+    for script in (ROOT / "chip_smoke.py", lone):
+        r = subprocess.run([sys.executable, str(script)], cwd=script.parent,
+                           capture_output=True, text=True, timeout=120)
+        assert r.returncode != 0
+        assert '"ok"' not in r.stdout
