@@ -24,7 +24,25 @@ result):
    every kernel of the path must have launched;
 4. times — each kernel's median ms at its main-path shape (CUDA events,
    after warm-up) beside its bound, its plain version and a PyTorch library
-   call of the same function where one exists; each forward's ms.
+   call of the same function where one exists; each forward's ms;
+5. serve parity — the 2D block-grid BSpMM kernels and the fused per-layer
+   kernel against their plain versions on the card at the serve bucket's
+   shapes (and the fused layer kinds also against the unfused layer
+   composition on the CPU), at the edge cases, and against a second run
+   (bit-equal);
+6. serving — ``GraphStore(max_batch=32, khop=2, use_pallas=True)`` on full
+   Flickr at hidden 64: GCN "bin" three ways, (a) the 1D kernels, (b)
+   ``bspmm_block=(32, 32)``, (c) ``fused=True``, each warmed up and then
+   answering 8 batches of 32 seeded seeds through ``serve_subgraph``, and
+   SAGE and SAINT fused for 2 batches each. Each batch is held against the
+   card's full-graph forward and the same seeds served on the CPU (plain
+   versions, the card's frozen BN), the ways against each other; no new
+   program after warmup; (b) launches the grid kernels and no 1D BSpMM,
+   (c) one fused launch per layer and nothing else; an artifact saved from
+   (a) restores into a new store and serves the same answers;
+7. serve times — the grid and fused kernels at the bucket, per-batch
+   ``serve_subgraph`` p50 / p90 and its extract / launch + finish split,
+   and the full-graph forward behind ``full_logits``.
 
 Output: a JSON line with one record per kernel, the card's name and power
 limit from nvidia-smi, and last the line
@@ -58,7 +76,19 @@ REPLACES = {
                    "src/repro/kernels/bspmm_kernel.py:482"),
     "bspmm_fp": ("src/repro_torch/csrc/bspmm.cu",
                  "src/repro/kernels/bspmm_kernel.py:547"),
+    "bspmm_bits_grid": ("src/repro_torch/csrc/bspmm_grid.cu",
+                        "src/repro/kernels/bspmm_kernel.py:435"),
+    "bspmm_fp_grid": ("src/repro_torch/csrc/bspmm_grid.cu",
+                      "src/repro/kernels/bspmm_kernel.py:406"),
+    "fused_layer": ("src/repro_torch/csrc/fused_layer.cu",
+                    "src/repro/kernels/fused_layer.py:163"),
 }
+FORWARD_KERNELS = ("binarize_pack", "bmm_xnor", "bspmm_bits", "bspmm_fp")
+SERVE_KERNELS = ("bspmm_bits_grid", "bspmm_fp_grid", "fused_layer")
+GRID_BLOCK = (32, 32)      # the (b) plan's bspmm_block
+SERVE_BATCH = 32           # seeds per serve_subgraph call (max_batch)
+SERVE_BATCHES = 8          # batches per GCN way; SAGE and SAINT take 2
+WARMUP_PROBES = 16
 
 
 def log(msg: str) -> None:
@@ -95,6 +125,51 @@ def host_ms(torch, fn, iters: int = 5) -> float:
     return statistics.median(times)
 
 
+def hold_to(torch, err, kernel, got, want, n_bits=None, magnitude=None):
+    """Bit-exact, or, given ``magnitude`` (the sum of |terms| behind each fp
+    output), within FP_TOL of it: reordering an fp32 sum moves it by a few
+    ulps of the magnitudes summed, not of the result. Records the max abs
+    error of ``kernel`` in ``err``."""
+    from repro_torch.core import bitops
+    if n_bits is not None:
+        got = bitops.unpack_bits(got, n_bits).to(torch.int64)
+        want = bitops.unpack_bits(want, n_bits).to(torch.int64)
+    if got.shape != want.shape:
+        raise AssertionError(f"{kernel}: shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)}")
+    diff = (got.to(torch.float64).cpu() - want.to(torch.float64).cpu()).abs()
+    e = float(diff.max()) if diff.numel() else 0.0
+    err[kernel] = max(err[kernel], e)
+    if magnitude is None and e != 0.0:
+        raise AssertionError(f"{kernel}: not bit-exact, max err {e}")
+    if magnitude is not None and bool(
+            (diff > FP_TOL * magnitude.to(torch.float64).cpu()
+             + FP_TOL_ABS).any()):
+        raise AssertionError(f"{kernel}: max err {e} beyond "
+                             f"{FP_TOL} x sum|terms| + {FP_TOL_ABS}")
+
+
+def bound(nbytes, ops_times) -> tuple:
+    """(least ms, "bytes" | "operations"): the bytes over the memory rate
+    against the operations over their type's peak rate (summed over
+    ``ops_times``, pairs of (operations, rate))."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = sum(n / rate for n, rate in ops_times) * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def real_groups(adj) -> int:
+    """Groups inside the grp_ptr ranges: what a walk visits (the pad_frdc
+    groups of a serve bucket lie past grp_ptr[-1] and are never read)."""
+    return int(adj.grp_ptr[-1])
+
+
+def group_bytes(adj) -> int:
+    """Bytes of the FRDC arrays a walk reads: grp_ptr, and the int32 tiles
+    and col_idx rows (8 words each) of the real groups."""
+    return 4 * adj.grp_ptr.numel() + 2 * 8 * 4 * real_groups(adj)
+
+
 def run(torch) -> dict:
     from repro_torch.core import bitops, frdc
     from repro_torch.graphs.datasets import make_dataset
@@ -104,6 +179,7 @@ def run(torch) -> dict:
     import numpy as np
 
     dev = DEVICE
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 BMM.F?? products
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(SEED)
@@ -138,29 +214,11 @@ def run(torch) -> dict:
             f"{a.n_groups} groups(gcn) {adjs[name]['gcn'].n_groups}")
 
     # -- 2. parity ----------------------------------------------------------
+    t0 = time.perf_counter()
     err = {k: 0.0 for k in REPLACES}
 
-    def bits_of(t, n):
-        return bitops.unpack_bits(t, n).to(torch.int64)
-
     def hold(kernel, got, want, n_bits=None, magnitude=None):
-        """Bit-exact, or, given ``magnitude`` (the sum of |terms| behind each
-        fp output), within FP_TOL of it: reordering an fp32 sum moves it by
-        a few ulps of the magnitudes summed, not of the result."""
-        if n_bits is not None:
-            got, want = bits_of(got, n_bits), bits_of(want, n_bits)
-        if got.shape != want.shape:
-            raise AssertionError(f"{kernel}: shape {tuple(got.shape)} vs "
-                                 f"{tuple(want.shape)}")
-        diff = (got.to(torch.float64) - want.to(torch.float64)).abs()
-        e = float(diff.max()) if diff.numel() else 0.0
-        err[kernel] = max(err[kernel], e)
-        if magnitude is None and e != 0.0:
-            raise AssertionError(f"{kernel}: not bit-exact, max err {e}")
-        if magnitude is not None and bool(
-                (diff > FP_TOL * magnitude + FP_TOL_ABS).any()):
-            raise AssertionError(f"{kernel}: max err {e} beyond "
-                                 f"{FP_TOL} x sum|terms| + {FP_TOL_ABS}")
+        hold_to(torch, err, kernel, got, want, n_bits, magnitude)
 
     n_fl, f_fl = flickr.x.shape
     n_rd, f_rd = reddit.x.shape
@@ -212,10 +270,12 @@ def run(torch) -> dict:
              magnitude=bspmm_kernel.bspmm_fp_plain(adj, x.abs()))
         cases += 1
     torch.cuda.synchronize()
-    log(f"parity: {cases} cases passed; max abs err "
+    log(f"parity: {cases} cases passed in {time.perf_counter() - t0:.1f} s; "
+        f"max abs err "
         + json.dumps({k: v for k, v in err.items()}))
 
     # -- 3. main path -------------------------------------------------------
+    t0 = time.perf_counter()
     xs = {"flickr": card(flickr.x), "reddit": card(reddit.x)}
     models = {
         "gcn_bin/flickr": (gnn.BitGCN(gnn.init_gcn(
@@ -237,7 +297,7 @@ def run(torch) -> dict:
                 "gcn_full": {"binarize_pack", "bmm_xnor", "bspmm_fp"},
                 "sage": {"binarize_pack", "bmm_xnor", "bspmm_fp"},
                 "saint": {"binarize_pack", "bmm_xnor", "bspmm_fp"}}
-    launches = {k: 0 for k in REPLACES}
+    launches = {k: 0 for k in FORWARD_KERNELS}
     forward_ms = {}
     for name, (model, ds, kinds) in models.items():
         x = xs[ds]
@@ -245,7 +305,8 @@ def run(torch) -> dict:
         ops.reset_launch_counts()
         logits, stats = model(x, *mats, return_bn_stats=True)
         torch.cuda.synchronize()
-        counts = ops.launch_counts()
+        counts = {k: v for k, v in ops.launch_counts().items()
+                  if k in FORWARD_KERNELS}
         for k, v in counts.items():
             launches[k] += v
         missing = [k for k in expected[name.split("/")[0]] if counts[k] == 0]
@@ -274,7 +335,8 @@ def run(torch) -> dict:
     for k, v in launches.items():
         if v == 0:
             raise AssertionError(f"kernel {k} never launched on the main path")
-    log(f"main path launches: {json.dumps(launches)}")
+    log(f"main path launches: {json.dumps(launches)}; "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # -- 4. times at the main-path shapes ------------------------------------
     adj_b, adj_g = adjs["flickr"]["binary"], adjs["flickr"]["gcn"]
@@ -294,19 +356,12 @@ def run(torch) -> dict:
                                   (n_fl, n_fl)).coalesce().to_sparse_csr()
     r4 = adj_b.n_tile_rows * 4
 
-    def group_bytes(adj):
-        return 4 * (adj.grp_ptr.numel() + adj.tiles.numel() + adj.col_idx.numel())
-
-    def bound(nbytes, nops, rate):
-        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, nops / rate * 1e3
-        return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
-
     specs = {
         "binarize_pack": (
             f"x ({n_fl}, {f_fl}) float32 -> ({n_fl}, {wk}) words",
             lambda: pack_kernel.binarize_pack_cuda(x500),
             lambda: pack_kernel.binarize_pack_plain(x500), None,
-            bound(4 * n_fl * f_fl + 4 * n_fl * wk, n_fl * f_fl, FP32_OPS_PER_S)),
+            bound(4 * n_fl * f_fl + 4 * n_fl * wk, [(n_fl * f_fl, FP32_OPS_PER_S)])),
         "bmm_xnor": (
             f"A ({n_fl}, {wk}) x B ({HIDDEN}, {wk}) words, K={f_fl} -> "
             f"({n_fl}, {HIDDEN}) int32",
@@ -314,7 +369,7 @@ def run(torch) -> dict:
             lambda: bmm_kernel.bmm_xnor_plain(a_w, b_w, f_fl),
             lambda: torch.matmul(a_pm1, b_pm1),
             bound(4 * (n_fl + HIDDEN) * wk + 4 * n_fl * HIDDEN,
-                  2 * n_fl * HIDDEN * f_fl, INT8_TC_OPS_PER_S)),
+                  [(2 * n_fl * HIDDEN * f_fl, INT8_TC_OPS_PER_S)])),
         "bspmm_bits": (
             f"flickr 0/1 FRDC ({adj_b.n_groups} groups, {adj_b.nnz} edges) x "
             f"({n_fl}, 2) words -> ({r4}, {HIDDEN}) int32 counts, s3",
@@ -322,7 +377,7 @@ def run(torch) -> dict:
             lambda: bspmm_kernel.bspmm_bits_plain(adj_b, h_w, HIDDEN, False),
             None,
             bound(group_bytes(adj_b) + 4 * h_w.numel() + 4 * r4 * HIDDEN,
-                  2 * adj_b.nnz * HIDDEN, INT8_TC_OPS_PER_S)),
+                  [(2 * adj_b.nnz * HIDDEN, INT8_TC_OPS_PER_S)])),
         "bspmm_fp": (
             f"flickr GCN FRDC ({adj_g.n_groups} groups, {adj_g.nnz} edges) x "
             f"({n_fl}, {HIDDEN}) float32 -> ({r4}, {HIDDEN}), raw",
@@ -330,31 +385,450 @@ def run(torch) -> dict:
             lambda: bspmm_kernel.bspmm_fp_plain(adj_g, h_fp),
             lambda: torch.sparse.mm(csr, h_fp),
             bound(group_bytes(adj_g) + 4 * n_fl * HIDDEN + 4 * r4 * HIDDEN,
-                  2 * adj_g.nnz * HIDDEN, FP32_OPS_PER_S)),
+                  [(2 * adj_g.nnz * HIDDEN, FP32_OPS_PER_S)])),
     }
     records = []
-    for name, (shape, kern, plain, lib, (b_ms, b_by)) in specs.items():
-        ms = cuda_ms(torch, kern)
-        plain_ms = cuda_ms(torch, plain, iters=5, warmup=1)
-        lib_ms = cuda_ms(torch, lib) if lib is not None else None
-        source, replaces = REPLACES[name]
-        rec = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces, "launches": launches[name],
-               "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
-        records.append(rec)
-        log(f"time {name} [{shape}]: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), library "
-            f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+    for name, (shape, kern, plain, lib, b) in specs.items():
+        records.append(kernel_record(
+            name, shape, launches[name], err[name], cuda_ms(torch, kern),
+            cuda_ms(torch, plain, iters=5, warmup=1),
+            cuda_ms(torch, lib) if lib is not None else None, b))
     # the high-degree case of the reddit run, printed beside the record
     adj_r = adjs["reddit"]["binary"]
     h_r = rand_words(n_rd, HIDDEN)
+    r_bound = bound(group_bytes(adj_r) + 4 * h_r.numel()
+                    + 4 * adj_r.n_tile_rows * 4 * HIDDEN,
+                    [(2 * adj_r.nnz * HIDDEN, INT8_TC_OPS_PER_S)])[0]
+    r_ms = cuda_ms(torch, lambda: bspmm_kernel.bspmm_bits_cuda(
+        adj_r, h_r, HIDDEN, False))
     log(f"time bspmm_bits reddit-0.1 [{adj_r.n_groups} groups, {adj_r.nnz} "
-        f"edges]: kernel "
-        f"{cuda_ms(torch, lambda: bspmm_kernel.bspmm_bits_cuda(adj_r, h_r, HIDDEN, False)):.4f}"
-        f" ms, bound {bound(group_bytes(adj_r) + 4 * h_r.numel() + 4 * adj_r.n_tile_rows * 4 * HIDDEN, 2 * adj_r.nnz * HIDDEN, INT8_TC_OPS_PER_S)[0]:.4f} ms")
+        f"edges]: kernel {r_ms:.4f} ms, bound {r_bound:.4f} ms")
     log("forward ms: " + json.dumps(forward_ms))
+    log(f"phases 1-4: {time.perf_counter() - t_start:.1f} s")
+    records += run_serve(torch, flickr)
     return {"kernels": records}
+
+
+# why a kernel has no library yardstick (library_ms null)
+NO_LIBRARY = {
+    "binarize_pack": "no PyTorch call packs sign bits into words",
+    "bspmm_bits": "no PyTorch call takes packed +-1 words",
+    "bspmm_bits_grid": "no PyTorch call takes packed +-1 words",
+    "fused_layer": "no single PyTorch call computes a whole layer "
+                   "(BN, binary transform, aggregation)",
+}
+
+
+def kernel_record(name, shape, launches, max_err, ms, plain_ms, lib_ms,
+                  bound_pair) -> dict:
+    b_ms, b_by = bound_pair
+    source, replaces = REPLACES[name]
+    lib = f"{lib_ms:.4f} ms" if lib_ms is not None \
+        else f"null ({NO_LIBRARY[name]})"
+    log(f"time {name} [{shape}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, bound {b_ms:.4f} ms ({b_by}), library {lib}")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": max_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms}
+
+
+def run_serve(torch, flickr) -> list:
+    """Phases 5-7: the serving slice on full Flickr. Returns the kernel
+    records of the 2D-grid and fused kernels."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.core import bitops, frdc
+    from repro_torch.core.binarize import BinTensor
+    from repro_torch.core.bmm import bmm, quantize_act
+    from repro_torch.graphs import sampling
+    from repro_torch.kernels import bspmm_kernel, fused_layer, ops
+    from repro_torch.models import gnn
+    from repro_torch.serve import GraphStore, session_core
+    from repro_torch.serve.gnn_session import CompiledGraphSession
+
+    dev = DEVICE
+    rng = np.random.default_rng(SEED + 1)
+    err = {k: 0.0 for k in SERVE_KERNELS}
+    n_fl, f_fl = flickr.x.shape
+    n_cls = flickr.n_classes
+    t_start = time.perf_counter()
+
+    def card(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def words(rows, nbits):
+        return bitops.pack_bits(card(rng.integers(0, 2, (rows, nbits))))
+
+    def hold(kernel, got, want, n_bits=None, magnitude=None):
+        hold_to(torch, err, kernel, got, want, n_bits, magnitude)
+
+    # -- sessions: GCN "bin" three ways, SAGE and SAINT fused ---------------
+    params = {fam: getattr(gnn, f"init_{fam}")(SEED, f_fl, HIDDEN, n_cls, dev)
+              for fam in ("gcn", "sage", "saint")}
+    ways = {"a": {}, "b": dict(bspmm_block=GRID_BLOCK), "c": dict(fused=True)}
+
+    def store(fam, **kw):
+        st = GraphStore(max_batch=SERVE_BATCH, khop=2, use_pallas=True,
+                        device=dev, **kw)
+        st.register_graph("flickr", flickr)
+        st.register_model(fam, fam, params[fam])
+        return st
+
+    t0 = time.perf_counter()
+    sessions = {w: store("gcn", **kw).session("flickr", "gcn")
+                for w, kw in ways.items()}
+    for fam in ("sage", "saint"):
+        sessions[fam] = store(fam, fused=True).session("flickr", fam)
+    compiles = {}
+    for name, sess in sessions.items():
+        sess.warmup(np.random.default_rng(SEED), probes=WARMUP_PROBES)
+        compiles[name] = sess.compile_count
+    torch.cuda.synchronize()
+    log(f"serve sessions + warmup: {time.perf_counter() - t0:.1f} s; plans "
+        + json.dumps({k: v.plan.name() for k, v in sessions.items()})
+        + "; programs " + json.dumps(compiles))
+
+    seeds = np.random.default_rng(SEED + 2).integers(
+        0, n_fl, size=(SERVE_BATCHES, SERVE_BATCH))
+    # the serve bucket of the first batch, as ServeCore stages it
+    staged = sessions["c"].prepare_batch(seeds[0]).groups[0].staged
+    n_pad = staged.x_pad.shape[0]
+    nnz = {k: int(np.unpackbits(a["tiles"].numpy().astype(np.uint16)
+                                .view(np.uint8)).sum())
+           for k, a in staged.adjs.items()}
+    bucket = {k: session_core.frdc_rebuild(
+        {f: v.to(dev) for f, v in a.items() if f != "item_ptr"}, n_pad, n_pad,
+        nnz[k]) for k, a in staged.adjs.items()}
+    bin_b, adj_b = bucket["bin"], bucket["adj"]
+    log(f"serve bucket: {n_pad} rows, groups (real, padded) "
+        + json.dumps({k: (real_groups(m), m.n_groups)
+                      for k, m in bucket.items()})
+        + ", edges " + json.dumps(nnz))
+
+    # -- 5. parity of the grid and fused kernels -----------------------------
+    t0 = time.perf_counter()
+    small = (rng.random((40, 40)) < 0.2).astype(np.float32)
+    small[20:] = 0
+    edge_adjs = [frdc.from_dense(np.ones((3, 3), np.float32), device=dev),
+                 frdc.from_dense(small, device=dev)]
+    edge_adjs.append(frdc.pad_frdc(edge_adjs[1], 64,
+                                   n_groups=edge_adjs[1].n_groups + 7))
+    full_bin = flickr.adjacency("binary", dev)       # the 1,399-group row
+    full_gcn = flickr.adjacency("gcn", dev)
+    cases = 0
+    bits_cases = [(bin_b, HIDDEN, blk) for blk in (GRID_BLOCK, (4, None),
+                                                     (8, 64))]
+    bits_cases += [(full_bin, HIDDEN, GRID_BLOCK)]
+    bits_cases += [(a, f, blk) for a in edge_adjs for f in (7, 100)
+                   for blk in ((4, None), (8, 32), (32, f))]
+    for adj, f, blk in bits_cases:
+        plan = bspmm_kernel._block_plan(blk, f, True)
+        x = words(adj.n_cols, f)
+        for binz in (False, True):
+            for mode in ("s3_two_popc", "s2_and_andnot"):
+                got = bspmm_kernel.bspmm_bits_grid_cuda(adj, x, f, binz, mode,
+                                                        plan)
+                hold("bspmm_bits_grid", got, bspmm_kernel.bspmm_bits_grid_plain(
+                    adj, x, f, binz, mode, plan), n_bits=f if binz else None)
+                hold("bspmm_bits_grid", got, bspmm_kernel.bspmm_bits_grid_cuda(
+                    adj, x, f, binz, mode, plan))          # deterministic
+                cases += 1
+    fp_cases = [(adj_b, f, GRID_BLOCK) for f in (n_cls, HIDDEN)]
+    fp_cases += [(full_gcn, HIDDEN, GRID_BLOCK), (full_bin, n_cls, (16, None))]
+    fp_cases += [(a, f, blk) for a in edge_adjs for f in (7, 100)
+                 for blk in ((4, None), (8, 24), (32, 32))]
+    for adj, f, blk in fp_cases:
+        plan = bspmm_kernel._block_plan(blk, f, False)
+        x = card(rng.standard_normal((adj.n_cols, f)).astype(np.float32))
+        got = bspmm_kernel.bspmm_fp_grid_cuda(adj, x, plan)
+        hold("bspmm_fp_grid", got, bspmm_kernel.bspmm_fp_grid_plain(adj, x, plan),
+             magnitude=bspmm_kernel.bspmm_fp_grid_plain(adj, x.abs(), plan))
+        hold("bspmm_fp_grid", got, bspmm_kernel.bspmm_fp_grid_cuda(adj, x, plan))
+        cases += 1
+
+    # fused kinds at the bucket shapes, on inputs whose transform sums are
+    # exact in any order (integer features, BN by integers, +-1 weights
+    # with power-of-two scales): packed words bit-exact, fp outputs within
+    # FP_TOL of their sum of |terms|; against the plain version on the card
+    # and the unfused layer composition on the CPU
+    def ints(shape, lo, hi):
+        return card(rng.integers(lo, hi, shape).astype(np.float32))
+
+    def weights(n_out, n_in):
+        return BinTensor(words(n_out, n_in), card(rng.choice(
+            [0.25, 0.5, 1.0], (n_out, 1)).astype(np.float32)), n_in)
+
+    x_i, x_h = ints((n_pad, f_fl), -3, 4), ints((n_pad, HIDDEN), -3, 4)
+    bn_i = (ints((1, f_fl), -1, 2), card(rng.choice([1.0, 2.0], (1, f_fl))
+                                        .astype(np.float32)))
+    bn_h = (ints((1, HIDDEN), -1, 2), card(rng.choice([1.0, 2.0], (1, HIDDEN))
+                                          .astype(np.float32)))
+    w1, w1b, w2 = weights(HIDDEN, f_fl), weights(HIDDEN, f_fl), \
+        weights(n_cls, HIDDEN)
+    h_w = words(n_pad, HIDDEN)
+    ones = torch.ones((n_pad, 1), device=dev)
+
+    def cpu(t):
+        if t is None:
+            return None
+        if isinstance(t, BinTensor):
+            return BinTensor(t.packed.cpu(), t.scale.cpu(), t.n)
+        if isinstance(t, frdc.FRDCMatrix):
+            return t.to("cpu")
+        if isinstance(t, tuple):
+            return tuple(cpu(v) for v in t)
+        return t.to("cpu")
+
+    fl = fused_layer
+    kinds = {   # name: (fused call, args, unfused layer on CPU args, mag)
+        "gcn_bin_l1": (fl.gcn_bin_l1, (x_i, bn_i, w1, bin_b),
+                       lambda x, bn, w, a: gnn.gcn_bitgnn_layers(
+                           gnn.GCNQuant(w, w2), "bin")[0](
+                           gnn._BNTap((bn,)), x, {"bin": a}).packed),
+        "gcn_bbf_fbf/words": (fl.gcn_bbf_fbf, (h_w, None, w2, adj_b),
+                              lambda h, bn, w, a: gnn.gcn_bitgnn_layers(
+                                  gnn.GCNQuant(w1, w), "bin")[1](
+                                  None, BinTensor(h, ones.cpu(), HIDDEN),
+                                  {"adj": a})),
+        "gcn_bbf_fbf/relu": (lambda *a: fl.gcn_bbf_fbf(*a, relu=True),
+                             (x_i, bn_i, w1, adj_b),
+                             lambda x, bn, w, a: gnn.gcn_bitgnn_layers(
+                                 gnn.GCNQuant(w, w2), "full")[0](
+                                 gnn._BNTap((bn,)), x, {"adj": a})),
+        "branch_add": (lambda *a: fl.branch_add(*a, relu=True),
+                       (x_i, bn_i, w1, w1b, adj_b),
+                       lambda x, bn, ws, wa, a: gnn._branch_add_layer(
+                           ws, wa, True)(gnn._BNTap((bn,)), x, {"adj": a})),
+        "fc": (fl.fc, (x_h, bn_h, w2),
+               lambda x, bn, w: bmm(quantize_act(gnn._BNTap((bn,))(x)), w,
+                                    "BBF")),
+    }
+    for kind, (call, args, unfused, ) in kinds.items():
+        got = call(*args)
+        hold("fused_layer", got, call(*args))                 # deterministic
+        base = kind.split("/")[0]
+        want = getattr(fl, f"{base}_plain")(*args, **(
+            {"relu": True} if kind in ("gcn_bbf_fbf/relu", "branch_add")
+            else {}))
+        want_cpu = unfused(*(cpu(a) for a in args))
+        if got.dtype == torch.int32:
+            n = w1.packed.shape[0]
+            hold("fused_layer", got, want, n_bits=n)
+            hold("fused_layer", got, want_cpu, n_bits=n)
+        else:
+            words_in, xs = fl._input(args[0], args[1])
+            w_agg = args[3] if kind == "branch_add" else args[2]
+            mag = torch.zeros((), device=dev)
+            if kind != "fc":
+                mag = fl.agg_fp(args[-1], fl._bbf(words_in, xs, w_agg).abs())
+            if kind == "branch_add":
+                mag = mag + fl._bbf(words_in, xs, args[2]).abs()
+            hold("fused_layer", got, want, magnitude=mag)
+            hold("fused_layer", got, want_cpu, magnitude=mag)
+        cases += 1
+    torch.cuda.synchronize()
+    log(f"parity (serve kernels): {cases} cases passed in "
+        f"{time.perf_counter() - t0:.1f} s; max abs err " + json.dumps(err))
+
+    # -- 6. the serving path: 8 batches of 32 seeds per GCN way, 2 for SAGE
+    # and SAINT, each held against the full-graph forward and the CPU ------
+    t0 = time.perf_counter()
+    n_layers = {"a": 2, "b": 2, "c": 2, "sage": 2, "saint": 3}
+    launches = {k: 0 for k in SERVE_KERNELS}
+    served, serve_ms, serve_split = {}, {}, {}
+    for name, sess in sessions.items():
+        n_b = SERVE_BATCHES if name in ways else 2
+        ops.reset_launch_counts()
+        outs, times = [], []
+        for i in range(n_b):
+            t1 = time.perf_counter()
+            outs.append(sess.serve_subgraph(seeds[i]))
+            times.append((time.perf_counter() - t1) * 1e3)
+        counts = ops.launch_counts()
+        for k in SERVE_KERNELS:
+            launches[k] += counts[k]
+        if sess.compile_count != compiles[name]:
+            raise AssertionError(f"serve {name}: {sess.compile_count - compiles[name]} "
+                                 f"new programs after warmup")
+        grid = counts["bspmm_bits_grid"] + counts["bspmm_fp_grid"]
+        one_d = counts["bspmm_bits"] + counts["bspmm_fp"]
+        if name == "a" and (grid or counts["fused_layer"] or not one_d):
+            raise AssertionError(f"serve a launched {counts}")
+        if name == "b" and (one_d or counts["fused_layer"]
+                            or not counts["bspmm_bits_grid"]
+                            or not counts["bspmm_fp_grid"]):
+            raise AssertionError(f"serve b launched {counts}")
+        if name not in ("a", "b"):
+            others = {k: v for k, v in counts.items()
+                      if k != "fused_layer" and v}
+            if counts["fused_layer"] != n_layers[name] * n_b or others:
+                raise AssertionError(f"serve {name}: {counts}, want "
+                                     f"{n_layers[name] * n_b} fused only")
+        served[name] = np.concatenate(outs)
+        serve_ms[name] = (float(np.percentile(times, 50)),
+                          float(np.percentile(times, 90)))
+        # where a batch's time goes: the extract stage (host) against
+        # launch + finish (copies to the card, kernels, copy back)
+        split = []
+        for i in range(2):
+            t1 = time.perf_counter()
+            prep = sess.prepare_batch(seeds[i])
+            t2 = time.perf_counter()
+            sess.finish_batch(prep, sess.launch_batch(prep))
+            split.append(((t2 - t1) * 1e3, (time.perf_counter() - t2) * 1e3))
+        serve_split[name] = tuple(float(np.median(v)) for v in zip(*split))
+        log(f"serve {name}: launches {json.dumps(counts)}; per batch p50 "
+            f"{serve_ms[name][0]:.3f} ms, p90 {serve_ms[name][1]:.3f} ms; "
+            f"extract {serve_split[name][0]:.3f} ms, launch + finish "
+            f"{serve_split[name][1]:.3f} ms")
+
+    def agree(what, got, want):
+        close = float(np.isclose(got, want, rtol=1e-3, atol=1e-3)
+                      .all(axis=1).mean())
+        same = float((got.argmax(1) == want.argmax(1)).mean())
+        log(f"agree {what}: rows close {close:.6f}, predictions {same:.6f}, "
+            f"max |dlogit| {float(np.abs(got - want).max()):.3e}")
+        if close < ROWS_CLOSE_MIN or same < PRED_AGREE_MIN:
+            raise AssertionError(f"{what}: answers disagree")
+
+    for name, sess in sessions.items():
+        n_b = SERVE_BATCHES if name in ways else 2
+        flat = seeds[:n_b].reshape(-1)
+        agree(f"{name} vs the card's full-graph forward", served[name],
+              sess.full_logits()[flat])
+        twin = CompiledGraphSession(
+            sess.graph, sess.model, sess.plan,
+            type(sess.qparams)(*(cpu(w) for w in sess.qparams)),
+            khop=sess.khop, max_batch=sess.max_batch,
+            adj_full={k: m.to("cpu") for k, m in sess._adj_full.items()},
+            use_pallas=True, device="cpu")
+        twin.bn = cpu(sess.bn)                # the card's frozen BN
+        twin.feature_version = sess.feature_version
+        agree(f"{name} vs the CPU", served[name], np.concatenate(
+            [twin.serve_subgraph(seeds[i]) for i in range(n_b)]))
+    agree("b vs a", served["b"], served["a"])
+    agree("c vs a", served["c"], served["a"])
+
+    # the fused kernel over the whole graph: the frozen full forward of (c)
+    sess_c = sessions["c"]
+    ops.reset_launch_counts()
+    fused_full = sess_c.full_forward(sess_c._x_dev, sess_c.bn)
+    torch.cuda.synchronize()
+    if ops.launch_counts()["fused_layer"] != 2:
+        raise AssertionError("full-graph fused forward: "
+                             + json.dumps(ops.launch_counts()))
+    agree("c full graph fused vs unfused", fused_full.cpu().numpy(),
+          sess_c.full_logits())
+
+    # artifact round trip: (a) saved, restored into a new store
+    with tempfile.TemporaryDirectory() as tmp:
+        sessions["a"].save(Path(tmp) / "flickr__gcn")
+        st2 = store("gcn", cache_dir=tmp)
+        if CompiledGraphSession.load(
+                Path(tmp) / "flickr__gcn", st2.graphs["flickr"],
+                st2.models["gcn"], khop=2, max_batch=SERVE_BATCH,
+                use_pallas=True, bspmm_block=None, fused=False,
+                device=dev) is None:
+            raise AssertionError("artifact of (a) did not restore")
+        restored = st2.session("flickr", "gcn")
+        agree("restored artifact vs a", np.concatenate(
+            [restored.serve_subgraph(seeds[i]) for i in range(2)]),
+            served["a"][:2 * SERVE_BATCH])
+    log(f"serve checks: {time.perf_counter() - t0:.1f} s")
+
+    # -- 7. times ------------------------------------------------------------
+    x_pad = card(staged.x_pad)
+    sess_a = sessions["a"]
+    h_pad = words(n_pad, HIDDEN)
+    y_pad = card(rng.standard_normal((n_pad, n_cls)).astype(np.float32))
+    grid_bits = bspmm_kernel._block_plan(GRID_BLOCK, HIDDEN, True)
+    grid_fp = bspmm_kernel._block_plan(GRID_BLOCK, n_cls, False)
+    uniq = np.unique(seeds[0])
+    ex = sampling.extract_khop(sess_a.graph.csr, uniq, 2)
+    loops = np.arange(ex.sub_nodes.size)
+    rows = np.concatenate([ex.sub_edges[0], loops])
+    cols = np.concatenate([ex.sub_edges[1], loops])
+    csr = torch.sparse_coo_tensor(card(np.stack([rows, cols])),
+                                  torch.ones(rows.size, device=dev),
+                                  (n_pad, n_pad)).coalesce().to_sparse_csr()
+    q, bn = sess_c.qparams, sess_c.bn
+    items = {k: a["item_ptr"].to(dev) for k, a in staged.adjs.items()}
+
+    def fused_fwd():
+        h = fused_layer.gcn_bin_l1(x_pad, bn[0], q.w1, bin_b,
+                                   item_ptr=items["bin"])
+        return fused_layer.gcn_bbf_fbf(h, None, q.w2, adj_b,
+                                       item_ptr=items["adj"])
+
+    def fused_plain():
+        h = fused_layer.gcn_bin_l1_plain(x_pad, bn[0], q.w1, bin_b)
+        return fused_layer.gcn_bbf_fbf_plain(h, None, q.w2, adj_b)
+
+    wh = -(-HIDDEN // 32)
+    fused_bytes = (4 * n_pad * f_fl + 8 * f_fl + 4 * HIDDEN * (q.w1.packed.shape[1] + 1)
+                   + group_bytes(bin_b) + 4 * (bin_b.n_tile_rows + 1)
+                   + 4 * n_pad * wh                            # layer 1 out
+                   + 4 * n_pad * wh + 4 * n_cls * (wh + 1)     # layer 2 in
+                   + group_bytes(adj_b) + 4 * (adj_b.n_tile_rows + 1)
+                   + 8 * n_pad + 4 * n_pad * n_cls)
+    specs = {
+        "bspmm_bits_grid": (
+            f"serve bucket 0/1 FRDC ({real_groups(bin_b)} groups of "
+            f"{bin_b.n_groups} padded, {nnz['bin']} edges) x ({n_pad}, {wh}) "
+            f"words -> ({n_pad}, {HIDDEN}) int32 counts, block {GRID_BLOCK}",
+            lambda: bspmm_kernel.bspmm_bits_grid_cuda(bin_b, h_pad, HIDDEN,
+                                                      False, plan=grid_bits),
+            lambda: bspmm_kernel.bspmm_bits_grid_plain(bin_b, h_pad, HIDDEN,
+                                                       False, plan=grid_bits),
+            None,
+            bound(group_bytes(bin_b) + 4 * h_pad.numel() + 4 * n_pad * HIDDEN,
+                  [(2 * nnz["bin"] * HIDDEN, INT8_TC_OPS_PER_S)])),
+        "bspmm_fp_grid": (
+            f"serve bucket GCN FRDC ({real_groups(adj_b)} groups of "
+            f"{adj_b.n_groups} padded, {nnz['adj']} edges) x ({n_pad}, "
+            f"{n_cls}) float32 -> ({n_pad}, {n_cls}), raw, block {GRID_BLOCK}",
+            lambda: bspmm_kernel.bspmm_fp_grid_cuda(adj_b, y_pad, grid_fp),
+            lambda: bspmm_kernel.bspmm_fp_grid_plain(adj_b, y_pad, grid_fp),
+            lambda: torch.sparse.mm(csr, y_pad),
+            bound(group_bytes(adj_b) + 4 * y_pad.numel() + 4 * n_pad * n_cls,
+                  [(2 * nnz["adj"] * n_cls, FP32_OPS_PER_S)])),
+        "fused_layer": (
+            f"one GCN bin serve forward on the bucket, 2 launches: "
+            f"gcn_bin_l1 ({n_pad}, {f_fl}) -> ({n_pad}, {wh}) words, "
+            f"gcn_bbf_fbf -> ({n_pad}, {n_cls})",
+            fused_fwd, fused_plain, None,
+            bound(fused_bytes,
+                  [(2 * n_pad * f_fl * (HIDDEN + 1), FP32_OPS_PER_S),
+                   (2 * nnz["bin"] * HIDDEN + 2 * n_pad * HIDDEN * n_cls,
+                    INT8_TC_OPS_PER_S),
+                   (2 * nnz["adj"] * n_cls, FP32_OPS_PER_S)])),
+    }
+    records = []
+    for name, (shape, kern, plain, lib, b) in specs.items():
+        records.append(kernel_record(
+            name, shape, launches[name], err[name], cuda_ms(torch, kern),
+            cuda_ms(torch, plain, iters=5, warmup=1),
+            cuda_ms(torch, lib) if lib is not None else None, b))
+    per_kind = {
+        "gcn_bin_l1": cuda_ms(torch, lambda: fused_layer.gcn_bin_l1(
+            x_pad, bn[0], q.w1, bin_b, item_ptr=items["bin"])),
+        "gcn_bbf_fbf": cuda_ms(torch, lambda: fused_layer.gcn_bbf_fbf(
+            h_pad, None, q.w2, adj_b, item_ptr=items["adj"]))}
+    log("time fused_layer per kind at the bucket (ms): " + json.dumps(per_kind))
+    full_ms = {w: host_ms(torch, lambda s=sessions[w]: s.full_forward(s._x_dev))
+               for w in ("a", "b")}
+    full_ms["c frozen, fused"] = host_ms(
+        torch, lambda: sess_c.full_forward(sess_c._x_dev, sess_c.bn))
+    full_ms["a frozen"] = host_ms(
+        torch, lambda: sess_a.full_forward(sess_a._x_dev, sess_a.bn))
+    log("serve per-batch ms (p50, p90): " + json.dumps(serve_ms))
+    log("serve per-batch split ms (extract, launch + finish): "
+        + json.dumps(serve_split))
+    log("full-graph forward ms (full_logits refresh): " + json.dumps(full_ms))
+    log(f"phases 5-7: {time.perf_counter() - t_start:.1f} s")
+    return records
 
 
 def main() -> int:

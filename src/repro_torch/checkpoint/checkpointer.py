@@ -1,0 +1,151 @@
+"""Async checkpointing in the reference's on-disk layout (reference:
+``repro/checkpoint/checkpointer.py``).
+
+Layout per step: ``<dir>/step_<N>/shard_0.npz`` + ``manifest.json``
+(written LAST: a checkpoint without a complete manifest is ignored, so a
+save is atomic under a crash). Leaves are stored as numpy arrays under the
+names ``a0, a1, ...`` and the manifest lists their tree paths. The paths are
+the strings the reference derives from ``jax.tree_util
+.tree_flatten_with_path``: dict keys sorted and written as they are,
+NamedTuple fields as ``.<field>``, sequence items as their index; ``None``
+holds no leaf. So a checkpoint written by either package lists the same
+keys and restores in the other. Saves run on a background thread;
+:meth:`Checkpointer.wait` joins it.
+"""
+from __future__ import annotations
+
+import json
+import threading
+import time
+from pathlib import Path
+from typing import Any, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(type(x), "_fields")
+
+
+def _children(tree):
+    """(key string, child) pairs of a tree node in flatten order, or None
+    for a leaf."""
+    if isinstance(tree, dict):
+        return [(str(k), tree[k]) for k in sorted(tree)]
+    if _is_namedtuple(tree):
+        return [(f".{f}", v) for f, v in zip(tree._fields, tree)]
+    if isinstance(tree, (list, tuple)):
+        return [(str(i), v) for i, v in enumerate(tree)]
+    return None
+
+
+def _flatten(tree: Any) -> Tuple[List[str], list, Any]:
+    """(path keys, leaves, tree structure) in the reference's order."""
+    keys, leaves = [], []
+
+    def walk(node, path):
+        if node is None:
+            return
+        kids = _children(node)
+        if kids is None:
+            keys.append("/".join(path))
+            leaves.append(node)
+            return
+        for k, v in kids:
+            walk(v, path + [k])
+
+    walk(tree, [])
+    return keys, leaves, tree
+
+
+def _unflatten(structure: Any, leaves: list) -> Any:
+    """Rebuild ``structure`` with its leaves replaced, in flatten order."""
+    it = iter(leaves)
+
+    def build(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        if _is_namedtuple(node):
+            return type(node)(*(build(v) for v in node))
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        return next(it)
+
+    return build(structure)
+
+
+def _host(leaf):
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+class Checkpointer:
+    def __init__(self, directory, keep: int = 3):
+        self.dir = Path(directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+
+    def save(self, step: int, state: Any, blocking: bool = False) -> None:
+        self.wait()
+        keys, leaves, _ = _flatten(state)
+        # device -> host copy happens here (a consistent view); the writes
+        # happen on the thread
+        host_leaves = [_host(x) for x in leaves]
+
+        def _write():
+            out = self.dir / f"step_{step:08d}"
+            out.mkdir(parents=True, exist_ok=True)
+            np.savez(out / "shard_0.npz",
+                     **{f"a{i}": v for i, v in enumerate(host_leaves)})
+            manifest = {"step": step, "time": time.time(), "keys": keys,
+                        "n_leaves": len(host_leaves),
+                        "shards": ["shard_0.npz"]}
+            (out / "manifest.json").write_text(json.dumps(manifest))
+            self._gc()
+
+        self._thread = threading.Thread(target=_write, daemon=True)
+        self._thread.start()
+        if blocking:
+            self.wait()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def _complete(self) -> list:
+        return sorted(p for p in self.dir.glob("step_*")
+                      if (p / "manifest.json").exists())
+
+    def _gc(self) -> None:
+        for old in self._complete()[: -self.keep]:
+            for f in old.glob("*"):
+                f.unlink()
+            old.rmdir()
+
+    def latest_step(self) -> Optional[int]:
+        done = self._complete()
+        if not done:
+            return None
+        return int(done[-1].name.split("_")[1])
+
+    def restore(self, step: Optional[int], like: Any) -> Any:
+        """Restore into the structure of ``like``; leaves come back as numpy
+        arrays with the stored dtypes."""
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no complete checkpoint in {self.dir}")
+        out = self.dir / f"step_{step:08d}"
+        manifest = json.loads((out / "manifest.json").read_text())
+        data = np.load(out / manifest["shards"][0])
+        leaves = [data[f"a{i}"] for i in range(manifest["n_leaves"])]
+        keys, _, structure = _flatten(like)
+        if keys != manifest["keys"]:
+            raise ValueError("checkpoint/model structure mismatch")
+        return _unflatten(structure, leaves)

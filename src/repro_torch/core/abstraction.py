@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Callable, Dict, Union
+from typing import Callable, Dict, Sequence, Union
 
 import torch
 
@@ -20,6 +20,10 @@ from .binarize import BinTensor, dequantize
 from .frdc import FRDCMatrix
 
 Tensor = Union[torch.Tensor, BinTensor]
+
+
+def precision_of(x: Tensor) -> str:
+    return "B" if isinstance(x, BinTensor) else "F"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,6 +105,18 @@ def check_chain(*names: str) -> None:
                 f"but {vb.name} expects {vb.in_precision!r}")
 
 
+# The legal GCNConv pairings of §3.1.2, plus the fully-fp-out / fully-bin-in
+# combinations used mid-network (the reference's list, in its order).
+MMSPMM_PAIRINGS: Sequence[tuple] = (
+    ("BMM.FBB", "BSpMM.BBB"),
+    ("BMM.FBF", "BSpMM.FBB"),
+    ("BMM.BBF", "BSpMM.FBF"),
+    ("BMM.BBB", "BSpMM.BBF"),
+    ("BMM.FBF", "BSpMM.FBF"),
+    ("BMM.BBB", "BSpMM.BBB"),
+)
+
+
 @dataclasses.dataclass(frozen=True)
 class MMSpMM:
     """High-level block: BMM -> BSpMM (the GCNConv core).
@@ -131,3 +147,6 @@ class MMAdd:
         b = op(self.mm_agg).fn(x_agg, w2)
         return op(self.add).fn(a, b)
 
+
+def legal_mmspmm_variants() -> Sequence[MMSpMM]:
+    return tuple(MMSpMM(a, b) for a, b in MMSPMM_PAIRINGS)

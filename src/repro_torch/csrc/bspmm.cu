@@ -33,19 +33,20 @@
 // gathers of set adjacency columns (one 128-byte slice of a neighbour row
 // each) before adding them to the rows of the tile that have the bit.
 // Column scales are folded into x and the row scale is applied by the
-// caller.
+// caller. Both group walks live in walk.cuh, shared with the 2D block grid
+// (bspmm_grid.cu) and the fused layer (fused_layer.cu).
 // Bound on H100: bytes for both (group arrays, gathered activations,
 // output); the arithmetic is a few operations per adjacency bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "walk.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kFull = walk::kFull;
 constexpr int kWarpsPerBlock = 8;
-constexpr int kTile = 4;
-constexpr int kGroup = 8;
-constexpr int kGroupsPerLoad = 32 / kGroup;  // tiles of 4 groups per load
+constexpr int kTile = walk::kTile;
 
 struct Item {
   int row;    // tile-row
@@ -89,17 +90,6 @@ __device__ __forceinline__ bool last_of_row(int32_t* row_done, int row,
   return last;
 }
 
-__device__ __forceinline__ uint32_t adjacency_word(uint32_t tile, int lane,
-                                                   int slot_group, int i) {
-  // lanes of `slot_group` hold its 8 tiles; row i's 4 bits of tile t go to
-  // bits t*4 .. t*4+3
-  const uint32_t part = (lane / kGroup == slot_group)
-                            ? ((tile >> (i * kTile)) & 0xFu)
-                                  << ((lane % kGroup) * kTile)
-                            : 0u;
-  return __reduce_or_sync(kFull, part);
-}
-
 __global__ void bspmm_bits_kernel(const int32_t* __restrict__ item_ptr,
                                   const int32_t* __restrict__ grp_ptr,
                                   const int32_t* __restrict__ tiles,
@@ -120,42 +110,7 @@ __global__ void bspmm_bits_kernel(const int32_t* __restrict__ item_ptr,
   const bool single = it.count == 1;
   for (int w = 0; w < wf; ++w) {
     int acc[kTile] = {0, 0, 0, 0};
-    for (int gb = it.g0; gb < it.g1; gb += kGroupsPerLoad) {
-      // one load brings the tiles and column ids of 4 groups
-      const int n_g = min(kGroupsPerLoad, it.g1 - gb);
-      const bool in = lane / kGroup < n_g;
-      const size_t idx = (size_t)gb * kGroup + lane;
-      const uint32_t my_tile = in ? (uint32_t)tiles[idx] : 0u;
-      const int my_col = in ? col_idx[idx] : 0;
-      uint32_t xk[kGroupsPerLoad];
-#pragma unroll
-      for (int q = 0; q < kGroupsPerLoad; ++q) {
-        const int col = __shfl_sync(kFull, my_col, q * kGroup + (lane >> 2));
-        const long long row = (long long)col * kTile + (lane & 3);
-        xk[q] = (q < n_g && row < n_x_rows) ? x[row * wf + w] : 0u;
-      }
-#pragma unroll
-      for (int q = 0; q < kGroupsPerLoad; ++q) {
-        if (q >= n_g) break;  // uniform across the warp
-        uint32_t a[kTile];
-#pragma unroll
-        for (int i = 0; i < kTile; ++i)
-          a[i] = adjacency_word(my_tile, lane, q, i);
-        uint32_t bt = 0u;
-#pragma unroll
-        for (int f = 0; f < 32; ++f) {
-          const uint32_t b = __ballot_sync(kFull, (xk[q] >> f) & 1u);
-          if (lane == f) bt = b;
-        }
-#pragma unroll
-        for (int i = 0; i < kTile; ++i) {
-          if (s2)
-            acc[i] += __popc(a[i] & bt) - __popc(a[i] & ~bt);
-          else
-            acc[i] += 2 * __popc(a[i] & bt) - __popc(a[i]);
-        }
-      }
-    }
+    walk::bits(tiles, col_idx, x, it.g0, it.g1, w, wf, n_x_rows, s2, lane, acc);
     if (!single) {
       int32_t* part = scratch + (size_t)w_id * kTile * width;
 #pragma unroll
@@ -167,7 +122,7 @@ __global__ void bspmm_bits_kernel(const int32_t* __restrict__ item_ptr,
       const uint32_t keep = tail ? (1u << (n_feat % 32)) - 1u : kFull;
 #pragma unroll
       for (int i = 0; i < kTile; ++i) {
-        const uint32_t word = __ballot_sync(kFull, acc[i] >= 0) & keep;
+        const uint32_t word = walk::sign_word(acc[i], keep);
         if (lane == 0) out_bits[(out_row + i) * wf + w] = word;
       }
     } else {
@@ -190,7 +145,7 @@ __global__ void bspmm_bits_kernel(const int32_t* __restrict__ item_ptr,
       const uint32_t keep = tail ? (1u << (n_feat % 32)) - 1u : kFull;
 #pragma unroll
       for (int i = 0; i < kTile; ++i) {
-        const uint32_t word = __ballot_sync(kFull, acc[i] >= 0) & keep;
+        const uint32_t word = walk::sign_word(acc[i], keep);
         if (lane == 0) out_bits[(out_row + i) * wf + w] = word;
       }
     } else {
@@ -221,36 +176,7 @@ __global__ void bspmm_fp_kernel(const int32_t* __restrict__ item_ptr,
     const int col = c0 + lane;
     const bool ok = col < f;
     float acc[kTile] = {0.f, 0.f, 0.f, 0.f};
-    for (int gb = it.g0; gb < it.g1; gb += kGroupsPerLoad) {
-      const int n_g = min(kGroupsPerLoad, it.g1 - gb);
-      const bool in = lane / kGroup < n_g;
-      const size_t idx = (size_t)gb * kGroup + lane;
-      const int my_tile = in ? tiles[idx] : 0;
-      const int my_col = in ? col_idx[idx] : 0;
-      for (int q = 0; q < n_g; ++q) {
-        uint32_t tile[kGroup];
-        float v[kGroup * kTile];
-#pragma unroll
-        for (int t = 0; t < kGroup; ++t) {
-          tile[t] = (uint32_t)__shfl_sync(kFull, my_tile, q * kGroup + t);
-          const int tcol = __shfl_sync(kFull, my_col, q * kGroup + t);
-#pragma unroll
-          for (int j = 0; j < kTile; ++j) {
-            const long long row = (long long)tcol * kTile + j;
-            const bool hit = ((tile[t] >> j) & 0x1111u) != 0u;
-            v[t * kTile + j] =
-                (hit && ok && row < n_x_rows) ? x[row * f + col] : 0.f;
-          }
-        }
-#pragma unroll
-        for (int t = 0; t < kGroup; ++t)
-#pragma unroll
-          for (int j = 0; j < kTile; ++j)
-#pragma unroll
-            for (int i = 0; i < kTile; ++i)
-              if ((tile[t] >> (i * kTile + j)) & 1u) acc[i] += v[t * kTile + j];
-      }
-    }
+    walk::fp(tiles, col_idx, x, it.g0, it.g1, col, ok, f, n_x_rows, lane, acc);
     if (ok) {
 #pragma unroll
       for (int i = 0; i < kTile; ++i) {

@@ -2,7 +2,9 @@
 
 Replaces the Pallas TPU kernels ``repro/kernels/bspmm_kernel.py:bspmm_bits``
 (``_bits_kernel``, 1D grid) and ``bspmm_kernel.py:bspmm_fp`` (``_fp_kernel``,
-1D grid) with ``csrc/bspmm.cu``. The TPU kernels walk the flattened group
+1D grid) with ``csrc/bspmm.cu``, and their 2D block grids
+(``_bspmm_bits_grid``, ``_bspmm_fp_grid``) with ``csrc/bspmm_grid.cu``; see
+"2D block grid" below. The TPU kernels walk the flattened group
 list on a sequential grid and keep the accumulator in VMEM across steps.
 The CUDA kernels give one warp a work item of at most
 ``GROUPS_PER_ITEM`` consecutive groups of one tile-row (from ``grp_ptr``),
@@ -29,6 +31,8 @@ count read as 0.
 """
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
 from ..core import bitops
@@ -37,7 +41,9 @@ from ..core.frdc import FRDCMatrix, GROUP_COLS, TILE, coarsen_groups, \
 from . import build
 
 WORD = 32
-LAUNCHES = {"bspmm_bits": 0, "bspmm_fp": 0}  # CUDA launches (plain calls not counted)
+# CUDA launches (plain calls not counted)
+LAUNCHES = {"bspmm_bits": 0, "bspmm_fp": 0, "bspmm_bits_grid": 0,
+            "bspmm_fp_grid": 0}
 # groups per chunk of the plain versions: bounds their gathered temporaries
 _CHUNK_ELEMS = 1 << 24
 TRINARY_MODES = ("s2_and_andnot", "s3_two_popc")
@@ -57,6 +63,32 @@ def _chunks(adj: FRDCMatrix, per_group: int):
         yield slice(lo, min(lo + step, adj.n_groups))
 
 
+def _bits_terms(adj: FRDCMatrix, xp: torch.Tensor, g,
+                trinary_mode: str) -> torch.Tensor:
+    """Algorithm 1 for groups ``g``: gather 32 neighbour rows of packed
+    words ``xp``, bit-transpose, trinary popc against the coarsened
+    adjacency words. Returns (len(g), TILE, Wf*32) int64 counts."""
+    bg = xp[group_neighbor_ids(adj.col_idx[g]).long()]         # (g, 32, Wf)
+    bt = bitops.as_u32(bitops.bit_transpose_32(bg.transpose(-1, -2)))
+    a = bitops.as_u32(coarsen_groups(adj.tiles[g]))[:, :, None, None]
+    b = bt[:, None, :, :]                                      # (g,1,Wf,32)
+    if trinary_mode == "s3_two_popc":
+        c = 2 * bitops.popcount(a & b) - bitops.popcount(a)
+    else:
+        c = bitops.popcount(a & b) - bitops.popcount(a & (b ^ bitops.MASK32))
+    return c.reshape(c.shape[0], TILE, -1)
+
+
+def _fp_terms(adj: FRDCMatrix, xp: torch.Tensor, g) -> torch.Tensor:
+    """The fp kernel for groups ``g``: (4, 32) 0/1 mask times the (32, F)
+    gathered rows of ``xp``. Returns (len(g), TILE, F)."""
+    k = torch.arange(GROUP_COLS, dtype=torch.int64, device=xp.device)
+    xg = xp[group_neighbor_ids(adj.col_idx[g]).long()]         # (g, 32, F)
+    words = bitops.as_u32(coarsen_groups(adj.tiles[g]))       # (g, 4)
+    mask = ((words[..., None] >> k) & 1).to(xp.dtype)         # (g, 4, 32)
+    return torch.einsum("gkn,gnf->gkf", mask, xg)
+
+
 def bspmm_bits_plain(adj: FRDCMatrix, x_packed: torch.Tensor, n_feat: int,
                      binarize: bool = True,
                      trinary_mode: str = "s3_two_popc") -> torch.Tensor:
@@ -71,16 +103,8 @@ def bspmm_bits_plain(adj: FRDCMatrix, x_packed: torch.Tensor, n_feat: int,
     counts = torch.zeros((adj.n_tile_rows, TILE, wf * WORD), dtype=torch.int64,
                          device=x_packed.device)
     for sl in _chunks(adj, GROUP_COLS * wf * WORD):
-        bg = xp[group_neighbor_ids(adj.col_idx[sl]).long()]      # (g, 32, Wf)
-        bt = bitops.as_u32(bitops.bit_transpose_32(bg.transpose(-1, -2)))
-        a = bitops.as_u32(coarsen_groups(adj.tiles[sl]))[:, :, None, None]
-        b = bt[:, None, :, :]                                   # (g,1,Wf,32)
-        if trinary_mode == "s3_two_popc":
-            c = 2 * bitops.popcount(a & b) - bitops.popcount(a)
-        else:
-            c = bitops.popcount(a & b) - bitops.popcount(a & (b ^ bitops.MASK32))
         counts.index_add_(0, adj.group_row[sl].long(),
-                          c.reshape(c.shape[0], TILE, wf * WORD))
+                          _bits_terms(adj, xp, sl, trinary_mode))
     counts = counts.reshape(-1, wf * WORD).to(torch.int32)
     if not binarize:
         return counts
@@ -95,13 +119,8 @@ def bspmm_fp_plain(adj: FRDCMatrix, x: torch.Tensor) -> torch.Tensor:
     xp = _gather_rows(x, adj)
     out = torch.zeros((adj.n_tile_rows, TILE, f), dtype=x.dtype,
                       device=x.device)
-    k = torch.arange(GROUP_COLS, dtype=torch.int64, device=x.device)
     for sl in _chunks(adj, GROUP_COLS * f):
-        xg = xp[group_neighbor_ids(adj.col_idx[sl]).long()]      # (g, 32, F)
-        words = bitops.as_u32(coarsen_groups(adj.tiles[sl]))    # (g, 4)
-        mask = ((words[..., None] >> k) & 1).to(x.dtype)        # (g, 4, 32)
-        out.index_add_(0, adj.group_row[sl].long(),
-                       torch.einsum("gkn,gnf->gkf", mask, xg))
+        out.index_add_(0, adj.group_row[sl].long(), _fp_terms(adj, xp, sl))
     return out.reshape(-1, f)
 
 
@@ -117,20 +136,28 @@ def _check_adj(adj: FRDCMatrix, x: torch.Tensor, what: str) -> None:
                          f"for {adj.n_tile_rows} tile-rows")
 
 
-def _work_items(adj: FRDCMatrix):
-    """(item_ptr, max_items, row_done) for the CUDA kernels: tile-row r owns
-    work items item_ptr[r] .. item_ptr[r+1] (max(1, ceil(groups /
-    GROUPS_PER_ITEM)) of them); ``max_items`` bounds item_ptr[-1] without a
-    device sync and sizes the grid and the partial-sum scratch."""
-    r = adj.n_tile_rows
-    per = adj.grp_ptr[1:] - adj.grp_ptr[:-1]
+def work_items(grp_ptr: torch.Tensor) -> torch.Tensor:
+    """item_ptr (R+1,) int32 of the CUDA BSpMM kernels: tile-row r owns work
+    items item_ptr[r] .. item_ptr[r+1], max(1, ceil(groups /
+    GROUPS_PER_ITEM)) of them."""
+    per = grp_ptr[1:] - grp_ptr[:-1]
     items = torch.clamp(torch.div(per + GROUPS_PER_ITEM - 1, GROUPS_PER_ITEM,
                                   rounding_mode="floor"), min=1)
-    item_ptr = torch.cat([items.new_zeros(1),
-                          torch.cumsum(items, 0, dtype=torch.int32)])
-    max_items = r + -(-adj.n_groups // GROUPS_PER_ITEM)
-    row_done = torch.zeros(r, dtype=torch.int32, device=adj.device)
-    return item_ptr, max_items, row_done
+    return torch.cat([items.new_zeros(1),
+                      torch.cumsum(items, 0, dtype=torch.int32)])
+
+
+def max_items(adj: FRDCMatrix) -> int:
+    """Upper bound of item_ptr[-1] from the shapes alone (no device sync):
+    sizes the grid and the partial-sum scratch."""
+    return adj.n_tile_rows + -(-adj.n_groups // GROUPS_PER_ITEM)
+
+
+def _work_items(adj: FRDCMatrix):
+    """(item_ptr, max_items, row_done) for the 1D CUDA kernels."""
+    row_done = torch.zeros(adj.n_tile_rows, dtype=torch.int32,
+                           device=adj.device)
+    return work_items(adj.grp_ptr), max_items(adj), row_done
 
 
 def bspmm_bits_cuda(adj: FRDCMatrix, x_packed: torch.Tensor, n_feat: int,
@@ -185,4 +212,184 @@ def bspmm_fp_cuda(adj: FRDCMatrix, x: torch.Tensor) -> torch.Tensor:
         scratch.data_ptr(), row_done.data_ptr(), adj.n_tile_rows, max_items,
         GROUPS_PER_ITEM, n, f, stream), "bspmm_fp")
     LAUNCHES["bspmm_fp"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 2D block grid: multi-row output blocks x feature blocks
+# ---------------------------------------------------------------------------
+# One CUDA block owns ``rows`` output rows x one feature block, as one grid
+# step of the TPU kernel does, and walks its tile-rows' ``grp_ptr`` ranges
+# (``pad_frdc`` groups past ``grp_ptr[-1]`` are never visited). Warps take
+# light tile-rows whole; a tile-row of more than 32 groups is split over the
+# block's 8 warps, whose partial sums are added in warp order in shared
+# memory, so the result is deterministic (``csrc/bspmm_grid.cu``).
+
+class BlockPlan(NamedTuple):
+    """Resolved (rows, feats) block tunable for the 2D grid.
+
+    ``rows``: output rows per grid step — a positive multiple of TILE.
+    ``feats``: feature width per grid step, or None for the full width.
+    """
+    rows: int
+    feats: Optional[int]
+
+
+def block_probe(block_shape, f: int, packed_width: bool) -> Optional[str]:
+    """Capability probe for a (rows, feats) block shape: ``None`` when the
+    grid supports it, else ONE message naming the violation AND the legal
+    block-shape space (word alignment, real feature width) — callers get the
+    whole picture from any rejection instead of three divergent branches."""
+    if block_shape is None:
+        return None
+    if packed_width:
+        feat_space = (f"a positive multiple of the {WORD}-bit word or "
+                      f"exactly the real feature width {f} (packed kernels "
+                      f"carry word-native features)")
+    else:
+        feat_space = (f"any positive width (the fp feature dim is "
+                      f"zero-padded to the block grid; real width {f})")
+    space = (f"legal BSpMM block shapes: rows = a positive multiple of the "
+             f"FRDC tile-row height {TILE}; feats = None (full width) or "
+             f"{feat_space}")
+    rows, feats = block_shape
+    rows = int(rows)
+    if rows <= 0 or rows % TILE:
+        return (f"unsupported bspmm block {tuple(block_shape)!r}: rows "
+                f"{rows} is not a positive multiple of {TILE}; {space}")
+    if feats is None:
+        return None
+    feats = int(feats)
+    if feats <= 0:
+        return (f"unsupported bspmm block {tuple(block_shape)!r}: feats "
+                f"{feats} is not positive; {space}")
+    if packed_width and feats % WORD and feats != f:
+        return (f"unsupported bspmm block {tuple(block_shape)!r}: feats "
+                f"{feats} is neither word-aligned nor the real feature "
+                f"width; {space}")
+    return None
+
+
+def _block_plan(block_shape, f: int, packed_width: bool) -> Optional[BlockPlan]:
+    """Validate the tunable; None routes to the 1D grid, a BlockPlan to the
+    2D grid."""
+    reason = block_probe(block_shape, f, packed_width)
+    if reason is not None:
+        raise ValueError(reason)
+    if block_shape is None:
+        return None
+    rows, feats = block_shape
+    return BlockPlan(int(rows), None if feats is None else int(feats))
+
+
+def _resolve_block(block_shape, f: int, packed_width: bool) -> int:
+    """Validate the (rows, feats) block-shape tunable and return the padded
+    feature width of one grid step's output row-block.
+
+    Packed-word paths (``packed_width``) keep their word-native storage
+    width; fp paths zero-pad the feature dimension up to a multiple of the
+    block width (exact). Rejections carry the full legal block-shape space —
+    see :func:`block_probe`, which is also the non-raising capability test.
+    """
+    plan = _block_plan(block_shape, f, packed_width)
+    if plan is None or plan.feats is None or packed_width:
+        return f
+    return -(-f // plan.feats) * plan.feats
+
+
+def _grid_geometry(adj: FRDCMatrix, plan: BlockPlan, width: int):
+    """(tb_rows, n_rb, fw, n_fb): tile-rows per row block, row blocks,
+    feature (or word) block width, feature blocks."""
+    tb_rows = plan.rows // TILE
+    n_rb = -(-adj.n_tile_rows // tb_rows)
+    fw = width if plan.feats is None else min(plan.feats, width)
+    n_fb = -(-width // fw)
+    return tb_rows, n_rb, fw, n_fb
+
+
+def _bits_word_plan(plan: BlockPlan) -> BlockPlan:
+    """The bits grid blocks words: a word-aligned ``feats`` becomes a word
+    count, a real-width one the full width."""
+    feats_w = None if (plan.feats is None or plan.feats % WORD) \
+        else plan.feats // WORD
+    return BlockPlan(plan.rows, feats_w)
+
+
+# The grid changes the order in which groups are summed, never the sums: the
+# trinary counts are integers (exact in any order) and the fp sums are held
+# to a tolerance of their sum of |terms|, which no order changes. So the
+# grids' plain versions are the 1D plain versions, the one reference of all
+# three BSpMM kernels (1D, grid, fused).
+
+def bspmm_bits_grid_plain(adj: FRDCMatrix, x_packed: torch.Tensor,
+                          n_feat: int, binarize: bool = True,
+                          trinary_mode: str = "s3_two_popc",
+                          plan: BlockPlan = BlockPlan(TILE, None)
+                          ) -> torch.Tensor:
+    """Plain version of the 2D grid over packed ±1 activations: (R4,
+    Wf*32) int32 counts or (R4, Wf) sign words, the tail of word
+    ``n_feat // 32`` masked. ``plan`` does not change the result."""
+    del plan
+    return bspmm_bits_plain(adj, x_packed, n_feat, binarize, trinary_mode)
+
+
+def bspmm_fp_grid_plain(adj: FRDCMatrix, x: torch.Tensor,
+                        plan: BlockPlan = BlockPlan(TILE, None)
+                        ) -> torch.Tensor:
+    """Plain version of the 2D grid over fp activations; raw (no scales);
+    returns (R4, F). The kernel's zero-padding of F to the feature blocks
+    is cropped away, so ``plan`` does not change the result."""
+    del plan
+    return bspmm_fp_plain(adj, x)
+
+
+def bspmm_bits_grid_cuda(adj: FRDCMatrix, x_packed: torch.Tensor,
+                         n_feat: int, binarize: bool = True,
+                         trinary_mode: str = "s3_two_popc",
+                         plan: BlockPlan = BlockPlan(TILE, None)
+                         ) -> torch.Tensor:
+    """Launch the 2D grid over packed ±1 activations: (R4, Wf*32) int32
+    counts or (R4, Wf) sign words."""
+    if not x_packed.is_cuda or x_packed.dtype != torch.int32 \
+            or x_packed.ndim != 2:
+        raise ValueError("bspmm_bits_grid_cuda takes 2-D CUDA int32 bit-view "
+                         f"words, got {x_packed.dtype} on {x_packed.device}")
+    if trinary_mode not in TRINARY_MODES:
+        raise ValueError(trinary_mode)
+    _check_adj(adj, x_packed, "bspmm_bits_grid_cuda")
+    x = x_packed.contiguous()
+    n, wf = x.shape
+    tb_rows, n_rb, fbw, n_fb = _grid_geometry(adj, _bits_word_plan(plan), wf)
+    out = torch.empty((adj.n_tile_rows * TILE, wf if binarize else wf * WORD),
+                      dtype=torch.int32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    build.check(build.library("bspmm_grid").bspmm_bits_grid(
+        adj.grp_ptr.data_ptr(), adj.tiles.data_ptr(), adj.col_idx.data_ptr(),
+        x.data_ptr(), out.data_ptr(), adj.n_tile_rows, tb_rows, n_rb, fbw,
+        n_fb, n, wf, int(n_feat), int(binarize),
+        int(trinary_mode == "s2_and_andnot"), stream), "bspmm_bits_grid")
+    LAUNCHES["bspmm_bits_grid"] += 1
+    return out
+
+
+def bspmm_fp_grid_cuda(adj: FRDCMatrix, x: torch.Tensor,
+                       plan: BlockPlan = BlockPlan(TILE, None)
+                       ) -> torch.Tensor:
+    """Launch the 2D grid over a CUDA float32 (N, F) tensor; raw (no
+    scales); returns (R4, F)."""
+    if not x.is_cuda or x.dtype != torch.float32 or x.ndim != 2:
+        raise ValueError("bspmm_fp_grid_cuda takes a 2-D CUDA float32 tensor, "
+                         f"got {x.dtype} on {x.device}")
+    _check_adj(adj, x, "bspmm_fp_grid_cuda")
+    x = x.contiguous()
+    n, f = x.shape
+    tb_rows, n_rb, fw, n_fb = _grid_geometry(adj, plan, f)
+    out = torch.empty((adj.n_tile_rows * TILE, f), dtype=torch.float32,
+                      device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    build.check(build.library("bspmm_grid").bspmm_fp_grid(
+        adj.grp_ptr.data_ptr(), adj.tiles.data_ptr(), adj.col_idx.data_ptr(),
+        x.data_ptr(), out.data_ptr(), adj.n_tile_rows, tb_rows, n_rb, fw,
+        n_fb, n, f, stream), "bspmm_fp_grid")
+    LAUNCHES["bspmm_fp_grid"] += 1
     return out

@@ -2,10 +2,11 @@
 
 Each source compiles with ``nvcc`` into its own shared library with a plain
 C interface, loaded with ``ctypes``. The library lands in ``_build/`` next
-to this package (listed in ``.gitignore``), named by a hash of the source
-and the flags, so an edited source rebuilds and an unchanged one is reused.
-Nothing builds at import: the first launch of a kernel builds its library,
-and :func:`build_all` builds every source in parallel (one ``nvcc`` each).
+to this package (listed in ``.gitignore``), named by a hash of the source,
+the shared headers ``csrc/*.cuh`` and the flags, so an edited source or
+header rebuilds and an unchanged one is reused. Nothing builds at import:
+the first launch of a kernel builds its library, and :func:`build_all`
+builds every source in parallel (one ``nvcc`` each).
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from typing import Dict, Iterable
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("pack", "bmm", "bspmm")
+SOURCES = ("pack", "bmm", "bspmm", "bspmm_grid", "fused_layer")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -37,6 +38,11 @@ SIGNATURES = {
                              _I, _L, _I, _I, _I, _I, _I, _I, _P),
               "bspmm_fp": (_P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _L, _I, _I, _I, _P)},
+    "bspmm_grid": {"bspmm_bits_grid": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                       _I, _L, _I, _I, _I, _I, _P),
+                   "bspmm_fp_grid": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _L, _I, _P)},
+    "fused_layer": {"fused_layer": (_P, _P)},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -57,6 +63,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -1,4 +1,4 @@
-"""Dispatch by tensor device over the four kernels (reference:
+"""Dispatch by tensor device over the kernels (reference:
 ``repro/kernels/ops.py``).
 
 For a CUDA tensor each entry point launches its CUDA kernel; for a CPU
@@ -7,15 +7,27 @@ There is no fallback: a CUDA tensor either reaches the kernel or the launch
 raises. The wrappers also apply what the TPU dispatch applies around the
 kernels (the BSpMM scale order, row crops), and :func:`launch_counts` reads
 the per-kernel CUDA launch counters.
+
+The serving sessions select kernels with :func:`serve_kernels`: a
+``block_shape`` routes the BSpMM stages to the 2D block grids. The fused
+per-layer kernels (:mod:`.fused_layer`) are called by the sessions
+themselves, one entry point per layer kind. Unlike the reference, where the
+Pallas kernels run only on a TPU (or under ``force_kernels``), the port
+always has its kernels: on the CPU the same flags select their plain
+versions.
 """
 from __future__ import annotations
+
+import contextlib
+import functools
 
 import torch
 
 from ..core.frdc import FRDCMatrix
-from . import bmm_kernel, bspmm_kernel, pack_kernel
+from . import bmm_kernel, bspmm_kernel, fused_layer, pack_kernel
 
-_COUNTERS = (pack_kernel.LAUNCHES, bmm_kernel.LAUNCHES, bspmm_kernel.LAUNCHES)
+_COUNTERS = (pack_kernel.LAUNCHES, bmm_kernel.LAUNCHES, bspmm_kernel.LAUNCHES,
+             fused_layer.LAUNCHES)
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -56,24 +68,70 @@ def bmm_xnor(a_packed: torch.Tensor, b_packed: torch.Tensor, n_bits: int,
 
 
 def bspmm_bits(adj: FRDCMatrix, x_packed: torch.Tensor, n_feat: int,
-               binarize: bool = True,
-               trinary_mode: str = "s3_two_popc") -> torch.Tensor:
+               binarize: bool = True, trinary_mode: str = "s3_two_popc",
+               block_shape=None) -> torch.Tensor:
     """FRDC trinary aggregation cropped to ``adj.n_rows`` rows: (n_rows,
-    Wf*32) int32 counts, or (n_rows, Wf) sign words if binarize."""
-    run = bspmm_kernel.bspmm_bits_cuda if _on_card(x_packed) \
-        else bspmm_kernel.bspmm_bits_plain
-    return run(adj, x_packed, n_feat, binarize, trinary_mode)[: adj.n_rows]
+    Wf*32) int32 counts, or (n_rows, Wf) sign words if binarize. A
+    ``block_shape`` (rows, feats) routes to the 2D block grid."""
+    plan = bspmm_kernel._block_plan(block_shape, n_feat, packed_width=True)
+    card = _on_card(x_packed)
+    if plan is None:
+        run = bspmm_kernel.bspmm_bits_cuda if card \
+            else bspmm_kernel.bspmm_bits_plain
+        out = run(adj, x_packed, n_feat, binarize, trinary_mode)
+    else:
+        run = bspmm_kernel.bspmm_bits_grid_cuda if card \
+            else bspmm_kernel.bspmm_bits_grid_plain
+        out = run(adj, x_packed, n_feat, binarize, trinary_mode, plan)
+    return out[: adj.n_rows]
 
 
-def bspmm_fp(adj: FRDCMatrix, x: torch.Tensor) -> torch.Tensor:
+def bspmm_fp(adj: FRDCMatrix, x: torch.Tensor,
+             block_shape=None) -> torch.Tensor:
     """Exact ``Adj_eff @ x`` for fp x: the column scale is folded into x
     before the kernel, the row scale applied once after (the order of the
-    reference's ``ops._serve_fp_backend``)."""
+    reference's ``ops._serve_fp_backend``). A ``block_shape`` routes to the
+    2D block grid."""
+    plan = bspmm_kernel._block_plan(block_shape, x.shape[1],
+                                    packed_width=False)
     if adj.col_scale is not None:
         x = x * adj.col_scale[:, None].to(x.dtype)
-    run = bspmm_kernel.bspmm_fp_cuda if _on_card(x) \
-        else bspmm_kernel.bspmm_fp_plain
-    out = run(adj, x)[: adj.n_rows]
+    card = _on_card(x)
+    if plan is None:
+        run = bspmm_kernel.bspmm_fp_cuda if card else bspmm_kernel.bspmm_fp_plain
+        out = run(adj, x)
+    else:
+        run = bspmm_kernel.bspmm_fp_grid_cuda if card \
+            else bspmm_kernel.bspmm_fp_grid_plain
+        out = run(adj, x, plan)
+    out = out[: adj.n_rows]
     if adj.row_scale is not None:
         out = out * adj.row_scale[:, None].to(out.dtype)
     return out
+
+
+def _serve_bits_backend(adj: FRDCMatrix, x_packed: torch.Tensor,
+                        trinary_mode: str, block_shape=None) -> torch.Tensor:
+    """``core.bspmm`` trinary-counts stage: raw counts (n_rows, Wf*32)."""
+    return bspmm_bits(adj, x_packed, x_packed.shape[1] * 32, binarize=False,
+                      trinary_mode=trinary_mode, block_shape=block_shape)
+
+
+@contextlib.contextmanager
+def serve_kernels(enabled: bool = True, block_shape=None):
+    """Route the BSpMM aggregation stages of ``core.bspmm`` by the serving
+    plan while active; yields whether the selection is on.
+
+    ``enabled`` is the sessions' ``use_pallas`` flag: off, the default 1D
+    kernels run and ``block_shape`` is ignored, as in the reference. On,
+    ``block_shape`` (``SessionPlan.bspmm_block``) sends both stages to the
+    2D block grids."""
+    if not enabled:
+        yield False
+        return
+    from ..core import bspmm as bspmm_core
+    with bspmm_core.override_backends(
+            fp=functools.partial(bspmm_fp, block_shape=block_shape),
+            bits=functools.partial(_serve_bits_backend,
+                                   block_shape=block_shape)):
+        yield True
