@@ -24,7 +24,9 @@ result):
    every kernel of the path must have launched;
 4. times — each kernel's median ms at its main-path shape (CUDA events,
    after warm-up) beside its bound, its plain version and a PyTorch library
-   call of the same function where one exists; each forward's ms;
+   call of the same function where one exists (``bspmm_fp`` also at F = 7,
+   every layer 2's width); each forward's ms; registers, static shared
+   memory and resident blocks per SM of the fp kernels;
 5. serve parity — the 2D block-grid BSpMM kernels and the fused per-layer
    kernel against their plain versions on the card at the serve bucket's
    shapes (and the fused layer kinds also against the unfused layer
@@ -40,7 +42,8 @@ result):
    program after warmup; (b) launches the grid kernels and no 1D BSpMM,
    (c) one fused launch per layer and nothing else; an artifact saved from
    (a) restores into a new store and serves the same answers;
-7. serve times — the grid and fused kernels at the bucket, per-batch
+7. serve times — the grid and fused kernels at the bucket (the fused
+   layer also per kind), their registers and occupancy, per-batch
    ``serve_subgraph`` p50 / p90 and its extract / launch + finish split,
    and the full-graph forward behind ``full_logits``.
 
@@ -123,6 +126,24 @@ def host_ms(torch, fn, iters: int = 5) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def device_ms(torch, fn, iters: int = 20) -> float:
+    """Mean device ms a call of ``fn`` spends in kernels and memsets
+    (torch.profiler), after one warm-up: unlike ``cuda_ms`` it leaves out
+    the time the card waits for the host between launches."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total if hasattr(e, "device_time_total")
+                else e.cuda_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / iters / 1e3
 
 
 def hold_to(torch, err, kernel, got, want, n_bits=None, magnitude=None):
@@ -403,10 +424,48 @@ def run(torch) -> dict:
         adj_r, h_r, HIDDEN, False))
     log(f"time bspmm_bits reddit-0.1 [{adj_r.n_groups} groups, {adj_r.nnz} "
         f"edges]: kernel {r_ms:.4f} ms, bound {r_bound:.4f} ms")
+    # bspmm_fp at every layer 2's width (F = 7), beside its own yardstick
+    n_cls = flickr.n_classes
+    h7 = card(rng.standard_normal((n_fl, n_cls)).astype(np.float32))
+    f7_bound = bound(group_bytes(adj_g) + 4 * n_fl * n_cls + 4 * r4 * n_cls,
+                     [(2 * adj_g.nnz * n_cls, FP32_OPS_PER_S)])
+    f7 = {"kernel": cuda_ms(torch, lambda: bspmm_kernel.bspmm_fp_cuda(adj_g, h7)),
+          "plain": cuda_ms(torch, lambda: bspmm_kernel.bspmm_fp_plain(adj_g, h7),
+                           iters=5, warmup=1),
+          "torch.sparse.mm": cuda_ms(torch, lambda: torch.sparse.mm(csr, h7))}
+    log(f"time bspmm_fp F={n_cls} [flickr GCN FRDC ({adj_g.n_groups} groups, "
+        f"{adj_g.nnz} edges) x ({n_fl}, {n_cls}) float32 -> ({r4}, {n_cls}), "
+        f"raw]: kernel {f7['kernel']:.4f} ms, plain {f7['plain']:.4f} ms, "
+        f"bound {f7_bound[0]:.4f} ms ({f7_bound[1]}), library "
+        f"{f7['torch.sparse.mm']:.4f} ms (torch.sparse.mm)")
+    log("device ms (torch.profiler): " + json.dumps({
+        f"bspmm_fp F={HIDDEN}": device_ms(
+            torch, lambda: bspmm_kernel.bspmm_fp_cuda(adj_g, h_fp)),
+        f"torch.sparse.mm F={HIDDEN}": device_ms(
+            torch, lambda: torch.sparse.mm(csr, h_fp)),
+        f"bspmm_fp F={n_cls}": device_ms(
+            torch, lambda: bspmm_kernel.bspmm_fp_cuda(adj_g, h7)),
+        f"torch.sparse.mm F={n_cls}": device_ms(
+            torch, lambda: torch.sparse.mm(csr, h7))}))
+    log_attributes(torch, build, bspmm_kernel, {
+        "bspmm_fp F=64": ("bspmm", "bspmm_fp", h_fp, HIDDEN),
+        f"bspmm_fp F={n_cls}": ("bspmm", "bspmm_fp", h7, n_cls)})
     log("forward ms: " + json.dumps(forward_ms))
     log(f"phases 1-4: {time.perf_counter() - t_start:.1f} s")
     records += run_serve(torch, flickr)
     return {"kernels": records}
+
+
+def log_attributes(torch, build, bspmm_kernel, cases) -> None:
+    """Registers a thread, static shared memory and resident blocks per SM
+    of the fp kernels in the lane layout each case's x gets (``cases``:
+    label -> (library, function, x, pass width))."""
+    out = {}
+    for label, (lib, fn, x, width) in cases.items():
+        lay = bspmm_kernel.fp_layout(width, x.shape[1], x.data_ptr())
+        out[label] = {"layout": list(lay), **build.attributes(
+            lib, fn, lay.sub, lay.cols, int(lay.vec))}
+    log("kernel attributes: " + json.dumps(out))
 
 
 # why a kernel has no library yardstick (library_ms null)
@@ -443,7 +502,7 @@ def run_serve(torch, flickr) -> list:
     from repro_torch.core.binarize import BinTensor
     from repro_torch.core.bmm import bmm, quantize_act
     from repro_torch.graphs import sampling
-    from repro_torch.kernels import bspmm_kernel, fused_layer, ops
+    from repro_torch.kernels import bspmm_kernel, build, fused_layer, ops
     from repro_torch.models import gnn
     from repro_torch.serve import GraphStore, session_core
     from repro_torch.serve.gnn_session import CompiledGraphSession
@@ -815,8 +874,22 @@ def run_serve(torch, flickr) -> list:
         "gcn_bin_l1": cuda_ms(torch, lambda: fused_layer.gcn_bin_l1(
             x_pad, bn[0], q.w1, bin_b, item_ptr=items["bin"])),
         "gcn_bbf_fbf": cuda_ms(torch, lambda: fused_layer.gcn_bbf_fbf(
-            h_pad, None, q.w2, adj_b, item_ptr=items["adj"]))}
+            h_pad, None, q.w2, adj_b, item_ptr=items["adj"])),
+        "branch_add (F = 64)": cuda_ms(torch, lambda: fused_layer.branch_add(
+            x_pad, bn[0], w1, w1b, adj_b, item_ptr=items["adj"]))}
     log("time fused_layer per kind at the bucket (ms): " + json.dumps(per_kind))
+    log("device ms (torch.profiler): " + json.dumps({
+        "bspmm_fp_grid": device_ms(torch, lambda: bspmm_kernel.bspmm_fp_grid_cuda(
+            adj_b, y_pad, grid_fp)),
+        "torch.sparse.mm": device_ms(torch, lambda: torch.sparse.mm(csr, y_pad)),
+        "fused_layer gcn_bbf_fbf": device_ms(torch, lambda: fused_layer.gcn_bbf_fbf(
+            h_pad, None, q.w2, adj_b, item_ptr=items["adj"]))}))
+    log_attributes(torch, build, bspmm_kernel, {
+        f"bspmm_fp_grid F={n_cls} block {GRID_BLOCK}": (
+            "bspmm_grid", "bspmm_fp_grid", y_pad,
+            bspmm_kernel._grid_geometry(adj_b, grid_fp, n_cls)[2])})
+    log("kernel attributes: " + json.dumps(
+        {"fused_layer": build.attributes("fused_layer", "fused_layer")}))
     full_ms = {w: host_ms(torch, lambda s=sessions[w]: s.full_forward(s._x_dev))
                for w in ("a", "b")}
     full_ms["c frozen, fused"] = host_ms(

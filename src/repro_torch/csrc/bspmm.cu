@@ -5,23 +5,23 @@
 // (_bits_kernel, 1D grid) and bspmm_kernel.py:bspmm_fp (_fp_kernel, 1D grid).
 //
 // Work split. The TPU kernels walk every group on a sequential grid and
-// flush a row on its last nonzero group. Here a warp takes one work item:
-// at most `chunk` consecutive groups of one tile-row (4 output rows), taken
-// from grp_ptr. item_ptr (R+1 entries, built by the caller) gives each
-// tile-row max(1, ceil(groups / chunk)) items, so a power-law hub row is
-// spread over many warps instead of serialising the launch on one. A row
-// with one item stores its result directly. A row with several items
-// stores per-item partial sums to `scratch`; the warp that finishes last
-// (an atomic ticket per row, after a __threadfence) adds the partials in
-// item order and stores the row, so the result does not depend on which
-// warp finishes when. Consequences the design relies on:
+// flush a row on its last nonzero group. Here work items are at most
+// `chunk` (16) consecutive groups of one tile-row (4 output rows), so a
+// power-law hub row is spread over many warps instead of serialising the
+// launch on one. A row with one item stores its result directly. A row with
+// several items stores per-item partial sums to `scratch`; the warp that
+// finishes last (an atomic ticket per row, after a __threadfence) adds the
+// partials in item order and stores the row, so the result does not depend
+// on which warp finishes when. Consequences the design relies on:
 //   * a tile-row with no groups stores 0 counts / 0.0, and in binarize mode
 //     sign(0) = +1 bits with the tail masked (the TPU prefill);
 //   * pad_frdc bucket groups past grp_ptr[-1] are never visited;
 //   * neighbour rows at or past the activation's row count read as 0, so x
 //     needs no padding to a multiple of 4 rows (their adjacency bits are 0).
 //
-// bspmm_bits, per group and per feature word w (Steps 2-5):
+// bspmm_bits: a warp per item of item_ptr (R+1 entries, built by the
+// caller: max(1, ceil(groups / chunk)) items a tile-row). Per group and per
+// feature word w (Steps 2-5):
 //   lane k loads neighbour word x[col_idx[g, k/4]*4 + k%4, w];
 //   the 8 tiles are OR-reduced into 4 adjacency words (Step 3);
 //   32 __ballot_sync calls transpose the 32x32 bit block, lane f keeping
@@ -29,9 +29,12 @@
 //   Bits are LSB-first, so no __brev is needed;
 //   lane f accumulates the trinary popc for the 4 rows (Step 5):
 //   s3 = 2*popc(a & b) - popc(a), s2 = popc(a & b) - popc(a & ~b).
-// bspmm_fp: lanes over 32 features at a time; per group the warp starts all
-// gathers of set adjacency columns (one 128-byte slice of a neighbour row
-// each) before adding them to the rows of the tile that have the bit.
+// bspmm_fp: walk::fp_block with a warp per tile-row of at most 16 groups;
+// a longer one is cut into chunk items in group space that each warp finds
+// from group_row and grp_ptr, so nothing is built before the launch. The
+// walk is edge-driven: per group a ballot finds the hit neighbour columns,
+// and only those are gathered, with lanes on (neighbour, feature) pairs at
+// small widths (walk.cuh).
 // Column scales are folded into x and the row scale is applied by the
 // caller. Both group walks live in walk.cuh, shared with the 2D block grid
 // (bspmm_grid.cu) and the fused layer (fused_layer.cu).
@@ -76,20 +79,6 @@ __device__ __forceinline__ bool find_item(const int32_t* __restrict__ item_ptr,
   return true;
 }
 
-// After this warp stored its partial: true for the warp that completes the
-// row (it then reads every partial of the row).
-__device__ __forceinline__ bool last_of_row(int32_t* row_done, int row,
-                                            int count, int lane) {
-  __threadfence();
-  __syncwarp();
-  int ticket = 0;
-  if (lane == 0) ticket = atomicAdd(&row_done[row], 1);
-  ticket = __shfl_sync(kFull, ticket, 0);
-  const bool last = ticket == count - 1;
-  if (last) __threadfence();
-  return last;
-}
-
 __global__ void bspmm_bits_kernel(const int32_t* __restrict__ item_ptr,
                                   const int32_t* __restrict__ grp_ptr,
                                   const int32_t* __restrict__ tiles,
@@ -131,7 +120,8 @@ __global__ void bspmm_bits_kernel(const int32_t* __restrict__ item_ptr,
         out_counts[(out_row + i) * width + (size_t)w * 32 + lane] = acc[i];
     }
   }
-  if (single || !last_of_row(row_done, it.row, it.count, lane)) return;
+  if (single || !walk::last_arrival(row_done + it.row, it.count, lane))
+    return;
   for (int w = 0; w < wf; ++w) {
     int acc[kTile] = {0, 0, 0, 0};
     for (int k = 0; k < it.count; ++k) {
@@ -156,50 +146,13 @@ __global__ void bspmm_bits_kernel(const int32_t* __restrict__ item_ptr,
   }
 }
 
-__global__ void bspmm_fp_kernel(const int32_t* __restrict__ item_ptr,
-                                const int32_t* __restrict__ grp_ptr,
-                                const int32_t* __restrict__ tiles,
-                                const int32_t* __restrict__ col_idx,
-                                const float* __restrict__ x,
-                                float* __restrict__ out, float* scratch,
-                                int32_t* row_done, int n_tile_rows, int chunk,
-                                int n_x_rows, int f) {
-  const int lane = threadIdx.x & 31;
-  const long long w_id =
-      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  Item it;
-  if (!find_item(item_ptr, grp_ptr, n_tile_rows, chunk, w_id, &it)) return;
-  const size_t out_row = (size_t)it.row * kTile;
-  const bool single = it.count == 1;
-  float* part = scratch + (size_t)w_id * kTile * f;
-  for (int c0 = 0; c0 < f; c0 += 32) {
-    const int col = c0 + lane;
-    const bool ok = col < f;
-    float acc[kTile] = {0.f, 0.f, 0.f, 0.f};
-    walk::fp(tiles, col_idx, x, it.g0, it.g1, col, ok, f, n_x_rows, lane, acc);
-    if (ok) {
-#pragma unroll
-      for (int i = 0; i < kTile; ++i) {
-        if (single)
-          out[(out_row + i) * f + col] = acc[i];
-        else
-          part[i * f + col] = acc[i];
-      }
-    }
-  }
-  if (single || !last_of_row(row_done, it.row, it.count, lane)) return;
-  for (int c0 = 0; c0 < f; c0 += 32) {
-    const int col = c0 + lane;
-    if (col >= f) break;
-    float acc[kTile] = {0.f, 0.f, 0.f, 0.f};
-    for (int k = 0; k < it.count; ++k) {
-      const float* p = scratch + (size_t)(it.first + k) * kTile * f;
-#pragma unroll
-      for (int i = 0; i < kTile; ++i) acc[i] += __ldcg(p + i * f + col);
-    }
-#pragma unroll
-    for (int i = 0; i < kTile; ++i) out[(out_row + i) * f + col] = acc[i];
-  }
+// The fp aggregation: walk::fp_block with one warp a tile-row (tb_rows =
+// kBlockWarps), the full width in one feature block, and heavy tile-rows
+// (more than kChunk groups) cut into items of at most kChunk groups.
+template <int kSub, int kCols, bool kVec>
+__global__ void __launch_bounds__(walk::kBlockWarps * 32)
+    bspmm_fp_kernel(const walk::FpGrid a) {
+  walk::fp_block<kSub, kCols, kVec>(a);
 }
 
 unsigned blocks_for(long long n_warps) {
@@ -227,19 +180,40 @@ extern "C" int bspmm_bits(const void* item_ptr, const void* grp_ptr,
   return (int)cudaGetLastError();
 }
 
-// scratch: max_items * 4 * f floats; row_done: R zeros.
-extern "C" int bspmm_fp(const void* item_ptr, const void* grp_ptr,
+// scratch: ceil(n_groups / 16) * 2 * 4 * f floats; row_done: R int32,
+// zeroed here; (sub, cols, vec): the walk's lane layout (walk::FpLanes).
+extern "C" int bspmm_fp(const void* grp_ptr, const void* group_row,
                         const void* tiles, const void* col_idx, const void* x,
                         void* out, void* scratch, void* row_done,
-                        int n_tile_rows, long long max_items, int chunk,
-                        int n_x_rows, int f, void* stream) {
-  if (n_tile_rows > 0 && f > 0 && max_items > 0) {
-    bspmm_fp_kernel<<<blocks_for(max_items), kWarpsPerBlock * 32, 0,
-                      (cudaStream_t)stream>>>(
-        (const int32_t*)item_ptr, (const int32_t*)grp_ptr,
-        (const int32_t*)tiles, (const int32_t*)col_idx, (const float*)x,
-        (float*)out, (float*)scratch, (int32_t*)row_done, n_tile_rows, chunk,
-        n_x_rows, f);
-  }
-  return (int)cudaGetLastError();
+                        int n_tile_rows, long long n_groups, long long n_x_rows,
+                        int f, int sub, int cols, int vec, void* stream) {
+  if (n_tile_rows <= 0 || f <= 0) return (int)cudaGetLastError();
+  constexpr int kWarps = walk::kBlockWarps;  // a warp per tile-row
+  const long long chunks = (n_groups + walk::kChunk - 1) / walk::kChunk;
+  walk::FpGrid a{(const int32_t*)grp_ptr, (const int32_t*)group_row,
+                 (const int32_t*)tiles, (const int32_t*)col_idx,
+                 (const float*)x, (float*)out, (float*)scratch,
+                 (int32_t*)row_done, n_x_rows, n_tile_rows,
+                 (int)((chunks + kWarps - 1) / kWarps), kWarps, f, f,
+                 walk::kChunk};
+  const unsigned blocks =
+      (unsigned)(a.n_chunk_blocks + (n_tile_rows + kWarps - 1) / kWarps);
+  const cudaError_t e = cudaMemsetAsync(row_done, 0, sizeof(int32_t) * n_tile_rows,
+                                        (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)walk::with_fp_layout(sub, cols, vec, [&](auto s, auto c, auto v) {
+    bspmm_fp_kernel<decltype(s)::value, decltype(c)::value, decltype(v)::value>
+        <<<blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(a);
+    return cudaGetLastError();
+  });
+}
+
+// Registers a thread, static shared bytes and resident blocks per SM of the
+// fp kernel built for layout (sub, cols, vec): out[0..2].
+extern "C" int bspmm_fp_attrs(int sub, int cols, int vec, int* out) {
+  return (int)walk::with_fp_layout(sub, cols, vec, [&](auto s, auto c, auto v) {
+    return walk::fp_attributes(
+        bspmm_fp_kernel<decltype(s)::value, decltype(c)::value, decltype(v)::value>,
+        out);
+  });
 }

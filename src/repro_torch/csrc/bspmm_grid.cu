@@ -9,13 +9,16 @@
 // bucket padding) are never visited, and a tile-row with no groups stores 0
 // counts / 0.0, or sign(0) = +1 bits.
 //
-// Load balance inside the CTA (Flickr has a tile-row of 1,399 groups against
-// a mean of 5): each warp takes the light tile-rows (at most kHeavy groups)
-// round-robin and walks each whole, in group order, from registers. A heavy
-// tile-row is then walked by all kWarps warps of the CTA together: warp k
-// takes the k-th contiguous slice of its group range, the partial sums go
-// to shared memory, and warp 0 adds them in warp order. Every output is a
-// fixed sum in a fixed order, so two runs give the same bits.
+// Load balance (Flickr has a tile-row of 1,399 groups against a mean of 5):
+// each warp takes the light tile-rows (at most kHeavy groups) round-robin
+// and walks each whole, in group order, from registers. A heavy tile-row
+// leaves the CTA in the fp grid: it is cut into chunk items of at most 16
+// groups spread over the whole launch and added in chunk order
+// (walk::fp_block). In the bits grid it is walked by all kWarps warps of
+// the CTA together: warp k takes the k-th contiguous slice of its group
+// range, the partial sums go to shared memory, and warp 0 adds them in warp
+// order. Every output is a fixed sum in a fixed order, so two runs give the
+// same bits.
 //
 // Binarize mode packs sign(count) per word, with the bits past n_feat % 32
 // cleared in word n_feat / 32 only (the TPU grid masks that word in the
@@ -106,57 +109,13 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
-    fp_grid_kernel(const int32_t* __restrict__ grp_ptr,
-                   const int32_t* __restrict__ tiles,
-                   const int32_t* __restrict__ col_idx,
-                   const float* __restrict__ x, float* __restrict__ out,
-                   int n_tile_rows, int tb_rows, int fw, long long n_x_rows,
-                   int f) {
-  __shared__ float part[kWarps][kTile][32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int tr0 = blockIdx.x * tb_rows;
-  const int tr1 = min(tr0 + tb_rows, n_tile_rows);
-  const int f0 = blockIdx.y * fw, f1 = min(f0 + fw, f);
-  for (int tr = tr0 + warp; tr < tr1; tr += kWarps) {
-    const int g0 = grp_ptr[tr], g1 = grp_ptr[tr + 1];
-    if (g1 - g0 > kHeavy) continue;
-    for (int c0 = f0; c0 < f1; c0 += 32) {
-      const int col = c0 + lane;
-      const bool ok = col < f1;
-      float acc[kTile] = {0.f, 0.f, 0.f, 0.f};
-      walk::fp(tiles, col_idx, x, g0, g1, col, ok, f, n_x_rows, lane, acc);
-      if (ok) {
-#pragma unroll
-        for (int i = 0; i < kTile; ++i)
-          out[((size_t)tr * kTile + i) * f + col] = acc[i];
-      }
-    }
-  }
-  for (int tr = tr0; tr < tr1; ++tr) {
-    const int g0 = grp_ptr[tr], n_g = grp_ptr[tr + 1] - g0;
-    if (n_g <= kHeavy) continue;  // uniform across the CTA
-    const int per = (n_g + kWarps - 1) / kWarps;
-    const int lo = g0 + min(warp * per, n_g), hi = g0 + min((warp + 1) * per, n_g);
-    for (int c0 = f0; c0 < f1; c0 += 32) {
-      const int col = c0 + lane;
-      const bool ok = col < f1;
-      float acc[kTile] = {0.f, 0.f, 0.f, 0.f};
-      walk::fp(tiles, col_idx, x, lo, hi, col, ok, f, n_x_rows, lane, acc);
-#pragma unroll
-      for (int i = 0; i < kTile; ++i) part[warp][i][lane] = acc[i];
-      __syncthreads();
-      if (warp == 0 && ok) {
-#pragma unroll
-        for (int i = 0; i < kTile; ++i) {
-          float s = 0.f;
-          for (int k = 0; k < kWarps; ++k) s += part[k][i][lane];
-          out[((size_t)tr * kTile + i) * f + col] = s;
-        }
-      }
-      __syncthreads();
-    }
-  }
+// The fp grid: walk::fp_block with the plan's row and feature blocks; heavy
+// tile-rows (more than kHeavy groups) leave their row CTA for chunk items
+// spread over the whole launch.
+template <int kSub, int kCols, bool kVec>
+__global__ void __launch_bounds__(walk::kBlockWarps * 32)
+    fp_grid_kernel(const walk::FpGrid a) {
+  walk::fp_block<kSub, kCols, kVec>(a);
 }
 
 }  // namespace
@@ -180,18 +139,42 @@ extern "C" int bspmm_bits_grid(const void* grp_ptr, const void* tiles,
   return (int)cudaGetLastError();
 }
 
-// grid (n_rb, n_fb); out: (n_tile_rows*4, f) raw sums (no scales).
-extern "C" int bspmm_fp_grid(const void* grp_ptr, const void* tiles,
-                             const void* col_idx, const void* x, void* out,
-                             int n_tile_rows, int tb_rows, int n_rb, int fw,
-                             int n_fb, long long n_x_rows, int f,
-                             void* stream) {
-  if (n_rb > 0 && n_fb > 0 && f > 0) {
-    fp_grid_kernel<<<dim3(n_rb, n_fb), kWarps * 32, 0,
-                     (cudaStream_t)stream>>>(
-        (const int32_t*)grp_ptr, (const int32_t*)tiles,
-        (const int32_t*)col_idx, (const float*)x, (float*)out, n_tile_rows,
-        tb_rows, fw, n_x_rows, f);
-  }
-  return (int)cudaGetLastError();
+// out: (n_tile_rows*4, f) raw sums (no scales); scratch: ceil(n_groups /
+// 16) * 2 * 4 * f floats; row_done: n_tile_rows * n_fb int32, zeroed here;
+// (sub, cols, vec): the walk's lane layout for a feature block of fw
+// columns.
+extern "C" int bspmm_fp_grid(const void* grp_ptr, const void* group_row,
+                             const void* tiles, const void* col_idx,
+                             const void* x, void* out, void* scratch,
+                             void* row_done, int n_tile_rows,
+                             long long n_groups, int tb_rows, int n_rb, int fw,
+                             int n_fb, long long n_x_rows, int f, int sub,
+                             int cols, int vec, void* stream) {
+  if (n_rb <= 0 || n_fb <= 0 || f <= 0) return (int)cudaGetLastError();
+  const long long chunks = (n_groups + walk::kChunk - 1) / walk::kChunk;
+  walk::FpGrid a{(const int32_t*)grp_ptr, (const int32_t*)group_row,
+                 (const int32_t*)tiles, (const int32_t*)col_idx,
+                 (const float*)x, (float*)out, (float*)scratch,
+                 (int32_t*)row_done, n_x_rows, n_tile_rows,
+                 (int)((chunks + walk::kBlockWarps - 1) / walk::kBlockWarps),
+                 tb_rows, fw, f, kHeavy};
+  const dim3 grid((unsigned)(a.n_chunk_blocks + n_rb), (unsigned)n_fb);
+  const cudaError_t e = cudaMemsetAsync(
+      row_done, 0, sizeof(int32_t) * n_tile_rows * n_fb, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)walk::with_fp_layout(sub, cols, vec, [&](auto s, auto c, auto v) {
+    fp_grid_kernel<decltype(s)::value, decltype(c)::value, decltype(v)::value>
+        <<<grid, walk::kBlockWarps * 32, 0, (cudaStream_t)stream>>>(a);
+    return cudaGetLastError();
+  });
+}
+
+// Registers a thread, static shared bytes and resident blocks per SM of the
+// fp grid kernel built for layout (sub, cols, vec): out[0..2].
+extern "C" int bspmm_fp_grid_attrs(int sub, int cols, int vec, int* out) {
+  return (int)walk::with_fp_layout(sub, cols, vec, [&](auto s, auto c, auto v) {
+    return walk::fp_attributes(
+        fp_grid_kernel<decltype(s)::value, decltype(c)::value, decltype(v)::value>,
+        out);
+  });
 }

@@ -81,6 +81,10 @@ struct Params {
   float* ys;    // (n_in, ho) self branch
   void* part;   // (max_items, 4, width) partial sums
   void* out;    // (n_rows, ho) float, or (n_rows, ceil(ho/32)) words
+  // the fp aggregation's lane layout (walk::FpLanes), from the wrapper
+  int fp_sub;
+  int fp_cols;
+  int fp_vec;
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -195,8 +199,25 @@ __device__ __forceinline__ void find_item(const Params& p, long long it,
   *g1 = min(*g0 + p.chunk, p.grp_ptr[lo + 1]);
 }
 
+// Phase 2 for one fp work item: its partial sums, every column, to `part`.
+template <int kSub, int kCols, bool kVec>
+__device__ __forceinline__ void aggregate_fp(const Params& p, float* part,
+                                             int g0, int g1, int lane,
+                                             int2* hits) {
+  using L = walk::FpLanes<kSub, kCols, kVec>;
+  for (int c0 = 0; c0 < p.ho; c0 += L::kPass) {
+    float acc[kTile][kCols] = {};
+    walk::fp<kSub, kCols, kVec, true>(p.tiles, p.col_idx, (const float*)p.y,
+                                      g0, g1, c0, p.ho, p.ho, p.n_in, lane,
+                                      hits, acc);
+    walk::fold<kSub, kCols>(acc);
+    walk::store<kSub, kCols, kVec>(part, p.ho, c0, p.ho, lane, acc);
+  }
+}
+
 __global__ void __launch_bounds__(kWarps * 32) fused_layer_kernel(Params p) {
   __shared__ uint32_t s_words[kWarps][kMaxWords];
+  __shared__ int2 s_hits[kWarps][walk::kHitsPerLoad];
   cg::grid_group grid = cg::this_grid();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long gw = (long long)blockIdx.x * kWarps + warp;
@@ -225,17 +246,12 @@ __global__ void __launch_bounds__(kWarps * 32) fused_layer_kernel(Params p) {
       }
     } else {
       float* part = (float*)p.part + it * kTile * width;
-      for (int c0 = 0; c0 < p.ho; c0 += 32) {
-        const int col = c0 + lane;
-        const bool ok = col < p.ho;
-        float acc[kTile] = {0.f, 0.f, 0.f, 0.f};
-        walk::fp<true>(p.tiles, p.col_idx, (const float*)p.y, g0, g1, col, ok, p.ho,
-                 p.n_in, lane, acc);
-        if (ok) {
-#pragma unroll
-          for (int i = 0; i < kTile; ++i) part[i * width + col] = acc[i];
-        }
-      }
+#define AGGREGATE(S, C, V)                                              \
+  if (p.fp_sub == S && p.fp_cols == C && p.fp_vec == (V))               \
+    aggregate_fp<S, C, V>(p, part, g0, g1, lane, s_hits[warp]);         \
+  else
+      WALK_FP_LAYOUTS(AGGREGATE) {}
+#undef AGGREGATE
     }
   }
   grid.sync();
@@ -292,6 +308,10 @@ __global__ void __launch_bounds__(kWarps * 32) fused_layer_kernel(Params p) {
 extern "C" int fused_layer(const void* params, void* stream) {
   Params p = *(const Params*)params;
   if (p.wk > kMaxWords || (p.ho + 31) / 32 > kMaxChunks) return (int)cudaErrorInvalidValue;
+  if (p.aggregate && !p.fbb &&
+      walk::with_fp_layout(p.fp_sub, p.fp_cols, p.fp_vec,
+                           [](auto, auto, auto) { return cudaSuccess; }) != cudaSuccess)
+    return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -310,4 +330,11 @@ extern "C" int fused_layer(const void* params, void* stream) {
                                   dim3(kWarps * 32), args, 0, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// Registers a thread, static shared bytes and resident blocks per SM of the
+// fused kernel (one build serves every layout): out[0..2].
+extern "C" int fused_layer_attrs(int* out) {
+  static_assert(kWarps == walk::kBlockWarps, "fp_attributes' block size");
+  return (int)walk::fp_attributes(fused_layer_kernel, out);
 }

@@ -6,22 +6,25 @@ Replaces the Pallas TPU kernels ``repro/kernels/bspmm_kernel.py:bspmm_bits``
 (``_bspmm_bits_grid``, ``_bspmm_fp_grid``) with ``csrc/bspmm_grid.cu``; see
 "2D block grid" below. The TPU kernels walk the flattened group
 list on a sequential grid and keep the accumulator in VMEM across steps.
-The CUDA kernels give one warp a work item of at most
-``GROUPS_PER_ITEM`` consecutive groups of one tile-row (from ``grp_ptr``),
-so a power-law hub row (1,399 groups on Flickr, mean 5) is spread over many
-warps. A row with one item is stored straight from registers; the partial
-sums of a row with several items are added in item order by the warp that
-finishes the row last, so results do not depend on scheduling.
+The CUDA kernels split a tile-row of many groups into work items of at most
+``GROUPS_PER_ITEM`` consecutive groups, so a power-law hub row (1,399 groups
+on Flickr, mean 5) is spread over many warps; the partial sums of a row of
+several items are added in item order by the warp that finishes the row
+last, so results do not depend on scheduling.
 
-* ``bspmm_bits``: Steps ②-⑤ of the paper's warp algorithm — lane k gathers
-  neighbour word k, the eight 4x4 tiles are OR-reduced into four adjacency
-  words, 32 ``__ballot_sync`` calls transpose the 32x32 bit block (LSB-first,
-  so no ``__brev``), and each lane accumulates the trinary popc (s3 or s2)
-  of one feature for the four rows. Binarize mode stores sign words with
-  the tail past ``n_feat`` masked.
-* ``bspmm_fp``: lanes over 32 features; per group the warp starts the
-  gathers of all set adjacency columns (coalesced slices of neighbour rows)
-  before adding them to the rows that have the bit.
+* ``bspmm_bits``: a warp per work item (``item_ptr``, built on the device).
+  Steps ②-⑤ of the paper's warp algorithm — lane k gathers neighbour word
+  k, the eight 4x4 tiles are OR-reduced into four adjacency words, 32
+  ``__ballot_sync`` calls transpose the 32x32 bit block (LSB-first, so no
+  ``__brev``), and each lane accumulates the trinary popc (s3 or s2) of one
+  feature for the four rows. Binarize mode stores sign words with the tail
+  past ``n_feat`` masked.
+* ``bspmm_fp``: a warp per light tile-row; a heavy one (more than
+  ``GROUPS_PER_ITEM`` groups) is cut into chunk items in group space, which
+  each warp finds from ``group_row`` and ``grp_ptr`` (see
+  :func:`heavy_items`). The walk is edge-driven (``csrc/walk.cuh``): per
+  group a ballot finds the hit neighbour columns and the warp gathers only
+  those, in a lane layout chosen by :func:`fp_layout`.
 
 Both are bound by bytes on the H100 (gathered activation rows, group
 arrays, output). Empty tile-rows store 0 (binarized: sign(0) = +1 bits with
@@ -47,7 +50,8 @@ LAUNCHES = {"bspmm_bits": 0, "bspmm_fp": 0, "bspmm_bits_grid": 0,
 # groups per chunk of the plain versions: bounds their gathered temporaries
 _CHUNK_ELEMS = 1 << 24
 TRINARY_MODES = ("s2_and_andnot", "s3_two_popc")
-GROUPS_PER_ITEM = 16   # groups of one tile-row per CUDA warp
+GROUPS_PER_ITEM = 16   # groups of one tile-row per CUDA warp (walk.cuh kChunk)
+HEAVY_GRID = 32        # csrc/bspmm_grid.cu kHeavy: groups a grid warp walks whole
 
 
 def _gather_rows(x: torch.Tensor, adj: FRDCMatrix) -> torch.Tensor:
@@ -125,7 +129,7 @@ def bspmm_fp_plain(adj: FRDCMatrix, x: torch.Tensor) -> torch.Tensor:
 
 
 def _check_adj(adj: FRDCMatrix, x: torch.Tensor, what: str) -> None:
-    for name in ("grp_ptr", "tiles", "col_idx"):
+    for name in ("grp_ptr", "group_row", "tiles", "col_idx"):
         t = getattr(adj, name)
         if t.device != x.device or t.dtype != torch.int32 \
                 or not t.is_contiguous():
@@ -137,9 +141,9 @@ def _check_adj(adj: FRDCMatrix, x: torch.Tensor, what: str) -> None:
 
 
 def work_items(grp_ptr: torch.Tensor) -> torch.Tensor:
-    """item_ptr (R+1,) int32 of the CUDA BSpMM kernels: tile-row r owns work
-    items item_ptr[r] .. item_ptr[r+1], max(1, ceil(groups /
-    GROUPS_PER_ITEM)) of them."""
+    """item_ptr (R+1,) int32 of the 1D bits kernel and the fused layer:
+    tile-row r owns work items item_ptr[r] .. item_ptr[r+1], max(1,
+    ceil(groups / GROUPS_PER_ITEM)) of them."""
     per = grp_ptr[1:] - grp_ptr[:-1]
     items = torch.clamp(torch.div(per + GROUPS_PER_ITEM - 1, GROUPS_PER_ITEM,
                                   rounding_mode="floor"), min=1)
@@ -154,10 +158,62 @@ def max_items(adj: FRDCMatrix) -> int:
 
 
 def _work_items(adj: FRDCMatrix):
-    """(item_ptr, max_items, row_done) for the 1D CUDA kernels."""
+    """(item_ptr, max_items, row_done) for the 1D bits kernel."""
     row_done = torch.zeros(adj.n_tile_rows, dtype=torch.int32,
                            device=adj.device)
     return work_items(adj.grp_ptr), max_items(adj), row_done
+
+
+class FpLayout(NamedTuple):
+    """Lane layout of the fp walk (``csrc/walk.cuh`` ``FpLanes``).
+
+    ``sub``: lanes of a sub-warp; the warp's 32 // sub sub-warps gather
+    separate hit neighbours. ``cols``: columns a lane takes in one pass.
+    ``vec``: a lane's columns come as one float2 / float4 load.
+    """
+    sub: int
+    cols: int
+    vec: bool
+
+
+def fp_layout(width: int, f: int, base_ptr: int) -> FpLayout:
+    """The fp kernels' lane layout for passes ``width`` columns wide (the
+    feature block) over rows of ``f`` floats starting at byte address
+    ``base_ptr``. A width of at most 16 rounds up to a power-of-two
+    sub-warp; wider ones take the whole warp, 2 columns a lane up to 64 and
+    4 above, as one vector load only where every row and block start is
+    aligned to it."""
+    if width <= 16:
+        return FpLayout(1 << (width - 1).bit_length(), 1, False)
+    cols = 1 if width <= WORD else 2 if width <= 2 * WORD else 4
+    vec = (cols > 1 and f % cols == 0 and width % cols == 0
+           and base_ptr % (4 * cols) == 0)
+    return FpLayout(WORD, cols, vec)
+
+
+def heavy_items(grp_ptr: torch.Tensor, group_row: torch.Tensor,
+                heavy: int) -> list:
+    """The fp kernels' work items of heavy tile-rows (more than ``heavy``
+    groups), as ``(chunk, slot, row, g0, g1)`` in chunk order.
+
+    The kernels build nothing for them: warp k takes chunk k, the groups
+    [k * GROUPS_PER_ITEM, (k + 1) * GROUPS_PER_ITEM) below ``grp_ptr[-1]``,
+    reads the tile-rows of its first and last group (``group_row``) and
+    walks the parts of heavy ones: slot 0 for the row of its first group,
+    slot 1 for a row that starts inside the chunk. A tile-row's partial
+    sums are added in chunk order. This is that split, on the host."""
+    gp = grp_ptr.tolist()
+    rows = group_row.tolist()
+    c = GROUPS_PER_ITEM
+    items = []
+    for k in range(-(-gp[-1] // c)):
+        lo, hi = k * c, min((k + 1) * c, gp[-1])
+        for slot, r in enumerate((rows[lo], rows[hi - 1])):
+            if slot and r == rows[lo]:
+                break
+            if gp[r + 1] - gp[r] > heavy:
+                items.append((k, slot, r, max(lo, gp[r]), min(hi, gp[r + 1])))
+    return items
 
 
 def bspmm_bits_cuda(adj: FRDCMatrix, x_packed: torch.Tensor, n_feat: int,
@@ -191,26 +247,40 @@ def bspmm_bits_cuda(adj: FRDCMatrix, x_packed: torch.Tensor, n_feat: int,
     return out
 
 
+def _fp_launch_args(adj: FRDCMatrix, x: torch.Tensor, what: str,
+                    plan: Optional[BlockPlan] = None):
+    """Checks and buffers shared by the fp kernels: (x, out, work, tickets).
+    ``work`` holds the heavy chunk items' partial sums and, past them, one
+    int32 ticket per tile-row and feature block of ``plan`` at address
+    ``tickets`` (zeroed by the launcher); one allocation, as the wrapper's
+    host time is most of a call at serving widths."""
+    if not x.is_cuda or x.dtype != torch.float32 or x.ndim != 2:
+        raise ValueError(f"{what} takes a 2-D CUDA float32 tensor, got "
+                         f"{x.dtype} on {x.device}")
+    _check_adj(adj, x, what)
+    x = x.contiguous()
+    f = x.shape[1]
+    n_fb = 1 if plan is None else _grid_geometry(adj, plan, f)[3]
+    out = torch.empty((adj.n_tile_rows * TILE, f), dtype=torch.float32,
+                      device=x.device)
+    part = -(-adj.n_groups // GROUPS_PER_ITEM) * 2 * TILE * f
+    work = torch.empty(part + adj.n_tile_rows * n_fb, dtype=torch.float32,
+                       device=x.device)
+    return x, out, work, work.data_ptr() + 4 * part
+
+
 def bspmm_fp_cuda(adj: FRDCMatrix, x: torch.Tensor) -> torch.Tensor:
     """Launch the fp FRDC kernel on a CUDA float32 (N, F) tensor; raw (no
     scales); returns (R4, F)."""
-    if not x.is_cuda or x.dtype != torch.float32 or x.ndim != 2:
-        raise ValueError("bspmm_fp_cuda takes a 2-D CUDA float32 tensor, got "
-                         f"{x.dtype} on {x.device}")
-    _check_adj(adj, x, "bspmm_fp_cuda")
-    x = x.contiguous()
+    x, out, work, tickets = _fp_launch_args(adj, x, "bspmm_fp_cuda")
     n, f = x.shape
-    out = torch.empty((adj.n_tile_rows * TILE, f), dtype=torch.float32,
-                      device=x.device)
-    item_ptr, max_items, row_done = _work_items(adj)
-    scratch = torch.empty(max_items * TILE * f, dtype=torch.float32,
-                          device=x.device)
+    lay = fp_layout(f, f, x.data_ptr())
     stream = torch.cuda.current_stream(x.device).cuda_stream
     build.check(build.library("bspmm").bspmm_fp(
-        item_ptr.data_ptr(), adj.grp_ptr.data_ptr(), adj.tiles.data_ptr(),
+        adj.grp_ptr.data_ptr(), adj.group_row.data_ptr(), adj.tiles.data_ptr(),
         adj.col_idx.data_ptr(), x.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), row_done.data_ptr(), adj.n_tile_rows, max_items,
-        GROUPS_PER_ITEM, n, f, stream), "bspmm_fp")
+        work.data_ptr(), tickets, adj.n_tile_rows, adj.n_groups, n, f,
+        lay.sub, lay.cols, int(lay.vec), stream), "bspmm_fp")
     LAUNCHES["bspmm_fp"] += 1
     return out
 
@@ -221,9 +291,11 @@ def bspmm_fp_cuda(adj: FRDCMatrix, x: torch.Tensor) -> torch.Tensor:
 # One CUDA block owns ``rows`` output rows x one feature block, as one grid
 # step of the TPU kernel does, and walks its tile-rows' ``grp_ptr`` ranges
 # (``pad_frdc`` groups past ``grp_ptr[-1]`` are never visited). Warps take
-# light tile-rows whole; a tile-row of more than 32 groups is split over the
-# block's 8 warps, whose partial sums are added in warp order in shared
-# memory, so the result is deterministic (``csrc/bspmm_grid.cu``).
+# light tile-rows whole. A tile-row of more than ``HEAVY_GRID`` groups is
+# split, in the bits grid over the block's 8 warps (partial sums added in
+# warp order in shared memory), in the fp grid into the chunk items of
+# :func:`heavy_items`, spread over the whole launch; both are deterministic
+# (``csrc/bspmm_grid.cu``).
 
 class BlockPlan(NamedTuple):
     """Resolved (rows, feats) block tunable for the 2D grid.
@@ -377,19 +449,17 @@ def bspmm_fp_grid_cuda(adj: FRDCMatrix, x: torch.Tensor,
                        ) -> torch.Tensor:
     """Launch the 2D grid over a CUDA float32 (N, F) tensor; raw (no
     scales); returns (R4, F)."""
-    if not x.is_cuda or x.dtype != torch.float32 or x.ndim != 2:
-        raise ValueError("bspmm_fp_grid_cuda takes a 2-D CUDA float32 tensor, "
-                         f"got {x.dtype} on {x.device}")
-    _check_adj(adj, x, "bspmm_fp_grid_cuda")
-    x = x.contiguous()
+    x, out, work, tickets = _fp_launch_args(adj, x, "bspmm_fp_grid_cuda",
+                                            plan)
     n, f = x.shape
     tb_rows, n_rb, fw, n_fb = _grid_geometry(adj, plan, f)
-    out = torch.empty((adj.n_tile_rows * TILE, f), dtype=torch.float32,
-                      device=x.device)
+    lay = fp_layout(fw, f, x.data_ptr())
     stream = torch.cuda.current_stream(x.device).cuda_stream
     build.check(build.library("bspmm_grid").bspmm_fp_grid(
-        adj.grp_ptr.data_ptr(), adj.tiles.data_ptr(), adj.col_idx.data_ptr(),
-        x.data_ptr(), out.data_ptr(), adj.n_tile_rows, tb_rows, n_rb, fw,
-        n_fb, n, f, stream), "bspmm_fp_grid")
+        adj.grp_ptr.data_ptr(), adj.group_row.data_ptr(), adj.tiles.data_ptr(),
+        adj.col_idx.data_ptr(), x.data_ptr(), out.data_ptr(),
+        work.data_ptr(), tickets, adj.n_tile_rows, adj.n_groups, tb_rows,
+        n_rb, fw, n_fb, n, f, lay.sub, lay.cols, int(lay.vec), stream),
+        "bspmm_fp_grid")
     LAUNCHES["bspmm_fp_grid"] += 1
     return out

@@ -37,12 +37,14 @@ SIGNATURES = {
     "bspmm": {"bspmm_bits": (_P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _L, _I, _I, _I, _I, _I, _I, _P),
               "bspmm_fp": (_P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _L, _I, _I, _I, _P)},
+                           _I, _L, _L, _I, _I, _I, _I, _P),
+              "bspmm_fp_attrs": (_I, _I, _I, _P)},
     "bspmm_grid": {"bspmm_bits_grid": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                        _I, _L, _I, _I, _I, _I, _P),
-                   "bspmm_fp_grid": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                     _L, _I, _P)},
-    "fused_layer": {"fused_layer": (_P, _P)},
+                   "bspmm_fp_grid": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L,
+                                     _I, _I, _I, _I, _L, _I, _I, _I, _I, _P),
+                   "bspmm_fp_grid_attrs": (_I, _I, _I, _P)},
+    "fused_layer": {"fused_layer": (_P, _P), "fused_layer_attrs": (_P,)},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -124,6 +126,16 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library for ``name``, built on first use."""
     lib = _LIBS.get(name)
     return lib if lib is not None else build_all([name])[name]
+
+
+def attributes(name: str, fn: str, *layout: int) -> Dict[str, int]:
+    """Registers a thread, static shared bytes and resident blocks per SM of
+    a kernel, from its library's ``<fn>_attrs`` query (``cudaFuncGetAttributes``
+    and the occupancy calculator, 256 threads a block)."""
+    out = (ctypes.c_int * 3)()
+    check(getattr(library(name), f"{fn}_attrs")(*layout, out), f"{fn}_attrs")
+    return {"registers": out[0], "static_smem_bytes": out[1],
+            "blocks_per_sm": out[2]}
 
 
 def check(status: int, what: str) -> None:

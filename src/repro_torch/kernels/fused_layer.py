@@ -39,7 +39,7 @@ from ..core import bitops
 from ..core.frdc import FRDCMatrix, TILE
 from . import bmm_kernel, build, pack_kernel
 from .bspmm_kernel import GROUPS_PER_ITEM, TRINARY_MODES, WORD, _check_adj, \
-    bspmm_bits_plain, bspmm_fp_plain, max_items, work_items
+    bspmm_bits_plain, bspmm_fp_plain, fp_layout, max_items, work_items
 
 if TYPE_CHECKING:   # core.binarize imports kernels.ops, which imports this
     from ..core.binarize import BinTensor
@@ -160,6 +160,8 @@ class _Params(ctypes.Structure):
         ("n_tile_rows", ctypes.c_int), ("n_rows", ctypes.c_longlong),
         ("chunk", ctypes.c_int),
         ("y", _P), ("ys", _P), ("part", _P), ("out", _P),
+        ("fp_sub", ctypes.c_int), ("fp_cols", ctypes.c_int),
+        ("fp_vec", ctypes.c_int),
     ]
 
 
@@ -244,8 +246,10 @@ def _launch(h: torch.Tensor, bn, w_a: BinTensor, adj: Optional[FRDCMatrix],
         p.col_scale = _ptr(adj.col_scale, dev, torch.float32, "col scale")
         p.n_tile_rows, p.n_rows = adj.n_tile_rows, adj.n_rows
         p.chunk = GROUPS_PER_ITEM
-        p.y = hold(torch.empty((n_in, wh if fbb else ho), dtype=kind,
-                               device=dev)).data_ptr()
+        y = hold(torch.empty((n_in, wh if fbb else ho), dtype=kind,
+                             device=dev))
+        p.y = y.data_ptr()
+        p.fp_sub, p.fp_cols, p.fp_vec = fp_layout(ho, ho, p.y)
         if w_s is not None:
             p.ys = hold(torch.empty((n_in, ho), dtype=torch.float32,
                                     device=dev)).data_ptr()

@@ -140,9 +140,11 @@ def _magnitude(kind, x, bn, w1, w2, adj):
     words, xs = fused_layer._input(x, bn)
     if kind == "fc":
         return torch.zeros(())
-    mag = fused_layer.agg_fp(adj, fused_layer._bbf(words, xs, w1).abs())
+    # branch_add(x, bn, w1, w2, adj) aggregates with w2, w1 is its self branch
+    w_agg = w2 if kind == "branch_add" else w1
+    mag = fused_layer.agg_fp(adj, fused_layer._bbf(words, xs, w_agg).abs())
     if kind == "branch_add":
-        mag = mag + fused_layer._bbf(words, xs, w2).abs()
+        mag = mag + fused_layer._bbf(words, xs, w1).abs()
     return mag
 
 
