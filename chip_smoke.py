@@ -11,9 +11,12 @@ result):
    per source, in parallel);
 2. parity — every kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it and at edge cases (N < 4, tail bits,
-   empty tile-rows, a ``pad_frdc``-padded matrix, F = 7). Integer kernels
-   must match bit for bit; ``bspmm_fp`` may differ by fp32 summation order,
-   within 1e-5 of the sum of |terms| behind each output, plus 1e-6;
+   empty tile-rows, a ``pad_frdc``-padded matrix, F = 7; ``bmm_xnor`` at
+   the tile edges M in {1, 15, 16, 17, 89,250}, K in {7, 255, 256, 257,
+   500}, N in {1, 7, 8, 33, 64}, which take both of its routes). Integer
+   kernels must match bit for bit; ``bspmm_fp`` may differ by fp32
+   summation order, within 1e-5 of the sum of |terms| behind each output,
+   plus 1e-6;
 3. main path — the paper's binary GNN inference at full width (hidden 64)
    with seeded random weights and BN calibrated on the full graph: GCN
    "bin", GCN "full", GraphSAGE and GraphSAINT on full-size Flickr, GCN
@@ -25,8 +28,11 @@ result):
 4. times — each kernel's median ms at its main-path shape (CUDA events,
    after warm-up) beside its bound, its plain version and a PyTorch library
    call of the same function where one exists (``bspmm_fp`` also at F = 7,
-   every layer 2's width); each forward's ms; registers, static shared
-   memory and resident blocks per SM of the fp kernels;
+   every layer 2's width; ``bmm_xnor`` at each distinct shape the
+   forwards give it, beside a bf16 ``torch.matmul`` of the unpacked +-1
+   operands); each forward's ms; registers, static and
+   dynamic shared memory and resident blocks per SM of the fp kernels and
+   of ``bmm_xnor``;
 5. serve parity — the 2D block-grid BSpMM kernels and the fused per-layer
    kernel against their plain versions on the card at the serve bucket's
    shapes (and the fused layer kinds also against the unfused layer
@@ -43,7 +49,10 @@ result):
    (c) one fused launch per layer and nothing else; an artifact saved from
    (a) restores into a new store and serves the same answers;
 7. serve times — the grid and fused kernels at the bucket (the fused
-   layer also per kind), their registers and occupancy, per-batch
+   layer also per kind, whole and transform-only, beside its yardstick:
+   fp32 ``torch.matmul(z, w_eff)`` for ``gcn_bin_l1``, a bf16
+   ``torch.matmul`` for the BBF kinds, and its bound), their registers,
+   shared memory and occupancy, per-batch
    ``serve_subgraph`` p50 / p90 and its extract / launch + finish split,
    and the full-graph forward behind ``full_logits``.
 
@@ -131,7 +140,10 @@ def host_ms(torch, fn, iters: int = 5) -> float:
 def device_ms(torch, fn, iters: int = 20) -> float:
     """Mean device ms a call of ``fn`` spends in kernels and memsets
     (torch.profiler), after one warm-up: unlike ``cuda_ms`` it leaves out
-    the time the card waits for the host between launches."""
+    the time the card waits for the host between launches. The profiler
+    can lose kernel records (seen in a process that had loaded several
+    builds of one kernel), so each kernel counts its mean over the
+    launches recorded, times its launches a call."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -140,10 +152,13 @@ def device_ms(torch, fn, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.device_time_total if hasattr(e, "device_time_total")
-                else e.cuda_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    return total / iters / 1e3
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.count:
+            t = e.device_time_total if hasattr(e, "device_time_total") \
+                else e.cuda_time_total
+            total += t / e.count * max(1, round(e.count / iters))
+    return total / 1e3
 
 
 def hold_to(torch, err, kernel, got, want, n_bits=None, magnitude=None):
@@ -261,6 +276,16 @@ def run(torch) -> dict:
         hold("bmm_xnor", bmm_kernel.bmm_xnor_cuda(a, b, k, True),
              bmm_kernel.bmm_xnor_plain(a, b, k, True), n_bits=n)
         cases += 2
+    # bmm_xnor's tile edges (N <= 8 runs the simt route, wider N the mma one)
+    for m in (1, 15, 16, 17, n_fl):
+        for k in (7, 255, 256, 257, 500):
+            for n in (1, 7, 8, 33, 64):
+                a, b = rand_words(m, k), rand_words(n, k)
+                for binz in (False, True):
+                    hold("bmm_xnor", bmm_kernel.bmm_xnor_cuda(a, b, k, binz),
+                         bmm_kernel.bmm_xnor_plain(a, b, k, binz),
+                         n_bits=n if binz else None)
+                    cases += 1
     # edge cases: N < 4, empty tile-rows (bottom half of the graph has no
     # edges), a pad_frdc-padded matrix, tail bits (F = 7, 100)
     small = (rng.random((40, 40)) < 0.2).astype(np.float32)
@@ -447,6 +472,29 @@ def run(torch) -> dict:
             torch, lambda: bspmm_kernel.bspmm_fp_cuda(adj_g, h7)),
         f"torch.sparse.mm F={n_cls}": device_ms(
             torch, lambda: torch.sparse.mm(csr, h7))}))
+    # bmm_xnor at each distinct shape the forwards give it, beside a bf16
+    # matmul of the unpacked +-1 operands (tools/xform_variants.py times the
+    # route not taken)
+    bmm_shapes = sorted({(n_fl, HIDDEN, f_fl), (n_fl, n_cls, HIDDEN),
+                         (n_fl, HIDDEN, HIDDEN), (n_rd, reddit.n_classes, HIDDEN)})
+    bmm_times, bmm_attrs = {}, {}
+    for m, n, k in bmm_shapes:
+        a, b = rand_words(m, k), rand_words(n, k)
+        a16 = (2 * card(rng.integers(0, 2, (m, k))) - 1).to(torch.bfloat16)
+        b16 = (2 * card(rng.integers(0, 2, (k, n))) - 1).to(torch.bfloat16)
+        wk_k = bitops.padded_words(k)
+        b_ms, b_by = bound(4 * (m + n) * wk_k + 4 * m * n,
+                           [(2 * m * n * k, INT8_TC_OPS_PER_S)])
+        row = {"bound_ms": b_ms, "bound_by": b_by}
+        for key, fn in (("bmm_xnor", lambda: bmm_kernel.bmm_xnor_cuda(a, b, k)),
+                        ("bf16 torch.matmul", lambda: a16 @ b16)):
+            row[key] = {"ms": cuda_ms(torch, fn),
+                        "device_ms": device_ms(torch, fn)}
+        bmm_attrs[f"N={n} Wk={wk_k}"] = bmm_kernel.attributes(n, wk_k)
+        bmm_times[f"{m}x{n}x{k}"] = row
+    log("time bmm_xnor per main-path shape (M x N x K; simt route at N <= 8, "
+        "mma above): " + json.dumps(bmm_times))
+    log("kernel attributes bmm_xnor: " + json.dumps(bmm_attrs))
     log_attributes(torch, build, bspmm_kernel, {
         "bspmm_fp F=64": ("bspmm", "bspmm_fp", h_fp, HIDDEN),
         f"bspmm_fp F={n_cls}": ("bspmm", "bspmm_fp", h7, n_cls)})
@@ -467,6 +515,106 @@ def log_attributes(torch, build, bspmm_kernel, cases) -> None:
             lib, fn, lay.sub, lay.cols, int(lay.vec))}
     log("kernel attributes: " + json.dumps(out))
 
+
+class transform_only:
+    """While active, every fused layer launch runs with ``aggregate = 0``,
+    so the kernel returns after its transform phase: the wrapper builds its
+    parameters as always, and only the flag in the struct it passes
+    changes. Without aggregation the transform writes its products (the
+    self branch's too) without the column scale."""
+
+    def __init__(self, build):
+        self.lib = build.library("fused_layer")
+
+    def __enter__(self):
+        self.real = self.lib.fused_layer
+
+        def launch(params, stream):
+            params._obj.aggregate = 0
+            return self.real(params, stream)
+        self.lib.fused_layer = launch
+
+    def __exit__(self, *exc):
+        self.lib.fused_layer = self.real
+
+
+def fused_kinds(torch, fused_layer, bitops, card, rng, d) -> None:
+    """Each fused kind at the serve bucket, whole and transform-only, beside
+    its yardstick (one PyTorch call of the transform's product) and the
+    bounds of both, on CUDA events (tools/xform_step0.py takes the device
+    times: after the serve phase torch.profiler under-counts here); then
+    the kernel's registers and occupancy at each kind's dynamic shared
+    memory."""
+    import numpy as np
+    from repro_torch.kernels import build
+    x_pad, h_pad, bn, q = d["x_pad"], d["h_pad"], d["bn"], d["q"]
+    bin_b, adj_b, items, nnz = d["bin_b"], d["adj_b"], d["items"], d["nnz"]
+    n, f = x_pad.shape
+    h, c = HIDDEN, d["w2"].packed.shape[0]
+    wh, wk_f, wk_h = -(-h // 32), bitops.padded_words(f), bitops.padded_words(h)
+    x_h = card(rng.standard_normal((n, h)).astype(np.float32))
+    bn_h = (card(0.1 * rng.standard_normal((1, h)).astype(np.float32)),
+            card(rng.uniform(0.5, 2.0, (1, h)).astype(np.float32)))
+    z = fused_layer._bn(x_pad, bn[0])
+    w_eff = (bitops.unpack_pm1(q.w1.packed, q.w1.n) * q.w1.scale).T.contiguous()
+
+    def pm1(r, k):
+        return (2 * card(rng.integers(0, 2, (r, k))) - 1).to(torch.bfloat16)
+    a_f, a_h, b_f2h, b_hc = pm1(n, f), pm1(n, h), pm1(f, 2 * h), pm1(h, c)
+    agg_bytes = {
+        "bin": group_bytes(bin_b) + 4 * (bin_b.n_tile_rows + 1),
+        "adj": group_bytes(adj_b) + 4 * (adj_b.n_tile_rows + 1) + 8 * n}
+    fl = fused_layer
+    # name: (call, attributes' (f, fbb, self_branch), (yardstick, call),
+    # input bytes, transform output bytes, final output bytes, adjacency,
+    # transform ops, aggregation ops)
+    kinds = {
+        "gcn_bin_l1 (500 -> 64)": (
+            lambda: fl.gcn_bin_l1(x_pad, bn[0], q.w1, bin_b, item_ptr=items["bin"]),
+            (f, True, False),
+            ("fp32 torch.matmul(z, w_eff)", lambda: z @ w_eff),
+            4 * n * f + 8 * f + 4 * h * (wk_f + 1), 4 * n * wh, 4 * n * wh, "bin",
+            [(2 * n * f * h, FP32_OPS_PER_S)],
+            [(2 * nnz["bin"] * h, INT8_TC_OPS_PER_S)]),
+        "gcn_bbf_fbf (words 64 -> 7)": (
+            lambda: fl.gcn_bbf_fbf(h_pad, None, q.w2, adj_b, item_ptr=items["adj"]),
+            (h, False, False),
+            ("bf16 torch.matmul", lambda: a_h @ b_hc),
+            4 * n * wh + 4 * c * (wh + 1), 4 * n * c, 4 * n * c, "adj",
+            [(2 * n * c * h, INT8_TC_OPS_PER_S)],
+            [(2 * nnz["adj"] * c, FP32_OPS_PER_S)]),
+        "branch_add (500 -> 64)": (
+            lambda: fl.branch_add(x_pad, bn[0], d["w1"], d["w1b"], adj_b,
+                                  item_ptr=items["adj"]),
+            (f, False, True),
+            ("bf16 torch.matmul, both weights", lambda: a_f @ b_f2h),
+            4 * n * f + 8 * f + 8 * h * (wk_f + 1), 8 * n * h, 4 * n * h, "adj",
+            [(4 * n * h * f, INT8_TC_OPS_PER_S), (2 * n * f, FP32_OPS_PER_S)],
+            [(2 * nnz["adj"] * h, FP32_OPS_PER_S)]),
+        "fc (64 -> 7)": (
+            lambda: fl.fc(x_h, bn_h, d["w2"]),
+            (h, False, False),
+            ("bf16 torch.matmul", lambda: a_h @ b_hc),
+            4 * n * h + 8 * h + 4 * c * (wk_h + 1), 4 * n * c, 4 * n * c, None,
+            [(2 * n * c * h, INT8_TC_OPS_PER_S), (2 * n * h, FP32_OPS_PER_S)],
+            []),
+    }
+    out, attrs = {}, {}
+    for name, (call, layer, (yname, yard), b_in, b_y, b_out, adj, ops_t,
+               ops_a) in kinds.items():
+        row = {"whole_ms": cuda_ms(torch, call)}
+        with transform_only(build):
+            row["transform_ms"] = cuda_ms(torch, call)
+        row["whole_bound_ms"], row["whole_bound_by"] = bound(
+            b_in + b_out + (agg_bytes[adj] if adj else 0), ops_t + ops_a)
+        row["transform_bound_ms"], row["transform_bound_by"] = bound(
+            b_in + b_y, ops_t)
+        row["yardstick"] = yname
+        row["yardstick_ms"] = cuda_ms(torch, yard)
+        out[name] = row
+        attrs[name] = fl.attributes(*layer)
+    log("time fused_layer per kind at the bucket: " + json.dumps(out))
+    log("kernel attributes fused_layer: " + json.dumps(attrs))
 
 # why a kernel has no library yardstick (library_ms null)
 NO_LIBRARY = {
@@ -870,26 +1018,17 @@ def run_serve(torch, flickr) -> list:
             name, shape, launches[name], err[name], cuda_ms(torch, kern),
             cuda_ms(torch, plain, iters=5, warmup=1),
             cuda_ms(torch, lib) if lib is not None else None, b))
-    per_kind = {
-        "gcn_bin_l1": cuda_ms(torch, lambda: fused_layer.gcn_bin_l1(
-            x_pad, bn[0], q.w1, bin_b, item_ptr=items["bin"])),
-        "gcn_bbf_fbf": cuda_ms(torch, lambda: fused_layer.gcn_bbf_fbf(
-            h_pad, None, q.w2, adj_b, item_ptr=items["adj"])),
-        "branch_add (F = 64)": cuda_ms(torch, lambda: fused_layer.branch_add(
-            x_pad, bn[0], w1, w1b, adj_b, item_ptr=items["adj"]))}
-    log("time fused_layer per kind at the bucket (ms): " + json.dumps(per_kind))
+    fused_kinds(torch, fused_layer, bitops, card, rng, dict(
+        x_pad=x_pad, h_pad=h_pad, bn=bn, q=q, w1=w1, w1b=w1b, w2=w2,
+        bin_b=bin_b, adj_b=adj_b, items=items, nnz=nnz))
     log("device ms (torch.profiler): " + json.dumps({
         "bspmm_fp_grid": device_ms(torch, lambda: bspmm_kernel.bspmm_fp_grid_cuda(
             adj_b, y_pad, grid_fp)),
-        "torch.sparse.mm": device_ms(torch, lambda: torch.sparse.mm(csr, y_pad)),
-        "fused_layer gcn_bbf_fbf": device_ms(torch, lambda: fused_layer.gcn_bbf_fbf(
-            h_pad, None, q.w2, adj_b, item_ptr=items["adj"]))}))
+        "torch.sparse.mm": device_ms(torch, lambda: torch.sparse.mm(csr, y_pad))}))
     log_attributes(torch, build, bspmm_kernel, {
         f"bspmm_fp_grid F={n_cls} block {GRID_BLOCK}": (
             "bspmm_grid", "bspmm_fp_grid", y_pad,
             bspmm_kernel._grid_geometry(adj_b, grid_fp, n_cls)[2])})
-    log("kernel attributes: " + json.dumps(
-        {"fused_layer": build.attributes("fused_layer", "fused_layer")}))
     full_ms = {w: host_ms(torch, lambda s=sessions[w]: s.full_forward(s._x_dev))
                for w in ("a", "b")}
     full_ms["c frozen, fused"] = host_ms(

@@ -14,13 +14,26 @@
 //   fc           BN -> quantize_act -> BMM.BBF.
 //
 // Aggregation needs every row's transform first, so the kernel is launched
-// cooperatively (all blocks resident, grid sized from the occupancy) and
-// runs three grid-stride phases separated by grid-wide barriers:
-//   1. transform: one warp per row. BN is (x - mu) / sd; quantize_act takes
-//      the sign bits and the mean |z| of the row; BMM.BBF is the XNOR-popc
-//      count times the row and weight scales; BMM.FBB sums z times the
-//      dequantized weight (+-scale) in k order and keeps the sign. The
-//      column scale of the adjacency is folded into the aggregated operand.
+// cooperatively (all blocks resident, grid sized from the occupancy with
+// the launch's dynamic shared memory) and runs three grid-stride phases
+// separated by grid-wide barriers:
+//   1. transform: one block per row tile.
+//      BMM.FBB (gcn_bin_l1): a register-tiled fp32 GEMM of 192 rows x 64
+//      columns a tile pass, 12 x 4 outputs a thread. Chunks of 32 features
+//      of x come into shared memory by cp.async, one ahead of their use
+//      over the block's tiles, BN (x - mu) / sd is applied there once an
+//      element, and the chunk's weight word of each column is expanded to
+//      +-scale floats (mu, sd and the weights sit in shared memory). Each
+//      output's sum is one fmaf chain in k order from 0, so the sign words
+//      do not depend on the tiling.
+//      BMM.BBF (the other kinds): quantize_act from a cp.async stream of
+//      32-feature chunks (64 rows a tile, a warp 8 rows; mean |z| as lane
+//      partials in k order, then the butterfly) into a shared tile of sign
+//      words and row scales, or packed input words with unit scales; the
+//      weights (and the self branch's) are staged in shared memory once a
+//      block (in chunks of 32 words and 64 columns past that) and
+//      multiplied with the mma tile of xnor.cuh (b1 tensor-core AND-popc),
+//      then scaled as (count * row scale) * weight scale [* column scale].
 //   2. aggregate: one warp per work item (at most `chunk` groups of one
 //      tile-row, from item_ptr), walking its groups in order (walk.cuh) and
 //      storing the item's partial sums.
@@ -29,23 +42,43 @@
 //      (with the tail bits past the width cleared).
 // Every sum has a fixed order, so two runs give the same bits. The scratch
 // (transform output, partials) comes from the caller's torch.empty.
-// Bound on H100: bytes at serving shapes (the input rows are read once; the
-// transform is at most 2 F H operations a row against 4 F bytes read).
+// Bound on H100: BMM.FBB is 2 F H fp32 operations a row (89,252 x 500 x 64
+// fma at the serve bucket, 0.085 ms at 67 TFLOP/s, against 0.053 ms for
+// the 178.5 MB of x), so gcn_bin_l1 is bound by operations; the BBF kinds
+// by the bytes of x and of their fp outputs. In both, BN's IEEE division
+// (kept so that z is bit-identical to the unfused BN) costs about a fifth
+// of the transform.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
 #include "walk.cuh"
+#include "xnor.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
 constexpr int kMaxWords = 128;  // input width <= 4096 features
 constexpr int kMaxChunks = 8;   // output width <= 256
 constexpr int kTile = walk::kTile;
 constexpr unsigned kFull = walk::kFull;
+// BMM.FBB tile: 16 x 16 threads, 12 rows x 4 columns each (8 rows: 4-8%
+// slower at the serve bucket, tools/xform_variants.py)
+constexpr int kFbbRM = 12, kFbbRN = 4;
+constexpr int kFbbRows = 16 * kFbbRM;   // 192
+constexpr int kFbbCols = 16 * kFbbRN;   // 64 a pass
+// chunks of fp input rows staged by cp.async
+constexpr int kChunk = 32;              // features a chunk
+constexpr int kChunkLd = kChunk + 4;    // floats between staged rows
+// BMM.BBF tile: 4 x 2 warps of xnor.cuh's mma tile (16 rows x 64 columns)
+constexpr int kBbfRows = 4 * xnor::kMmaRows;   // 64
+constexpr int kBbfCols = xnor::kMmaCols;       // 64 a pass
+constexpr int kBbfStages = 4;                  // fp chunks: 3 in flight
+static_assert(kThreads == xnor::kThreads && kWarps == 8, "4 x 2 warps");
 
 struct Params {
   // transform input: fp rows x (with BN when mu != null) or packed words xw
@@ -87,102 +120,370 @@ struct Params {
   int fp_vec;
 };
 
+// Dynamic shared memory of the transform phase for f input features, in
+// BMM.FBB or BMM.BBF (with or without the self branch's weights).
+int transform_smem(int f, bool fbb, bool self_branch) {
+  const int wk = (f + 31) / 32;
+  if (fbb)
+    return 4 * (2 * kFbbRows * kChunkLd + kChunk * kFbbCols +
+                2 * ((f + 3) & ~3) + kFbbCols * (wk + 1));
+  const int kw = wk < xnor::kKWords ? wk : xnor::kKWords;
+  return 4 * (kBbfStages * kBbfRows * kChunkLd + kBbfRows * (xnor::pad_ld(wk) + 1) +
+              2 * kBbfCols + (self_branch ? 2 : 1) * kBbfCols * xnor::pad_ld(kw));
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
 }
 
-// Phase 1 for one row, one warp.
-__device__ void transform_row(const Params& p, long long r, int lane,
-                              uint32_t* sw) {
-  const int wh = (p.ho + 31) / 32;
-  if (p.fbb) {
-    // BMM.FBB: acc[c] = sum_k z_k * (+-s_j), j = c*32 + lane
-    float acc[kMaxChunks], sj[kMaxChunks];
-#pragma unroll
-    for (int c = 0; c < kMaxChunks; ++c) {
-      acc[c] = 0.f;
-      sj[c] = c < wh ? p.s_a[min(c * 32 + lane, p.ho - 1)] : 0.f;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+}
+
+// Start copying features [k0, k0 + kChunk) of rows r0 .. r0 + rows of x
+// into xb (stride kChunkLd): 16 bytes a copy where rows and x are 16-byte
+// aligned.
+__device__ __forceinline__ void load_chunk(const Params& p, float* xb,
+                                           long long r0, int rows, int k0,
+                                           bool vec, int tid) {
+  const int kn = min(kChunk, p.f - k0);
+  if (vec) {
+    for (int e = tid; e < rows * (kChunk / 4); e += kThreads) {
+      const int r = e / (kChunk / 4), q = (e % (kChunk / 4)) * 4;
+      if (q < kn) cp_async16(xb + r * kChunkLd + q, p.x + (r0 + r) * p.f + k0 + q);
     }
-    for (int k0 = 0; k0 < p.f; k0 += 32) {
-      const int k = k0 + lane;
-      float z = 0.f;
-      if (k < p.f) {
-        z = p.x[r * p.f + k];
-        if (p.mu) z = (z - p.mu[k]) / p.sd[k];
+  } else {
+    for (int e = tid; e < rows * kChunk; e += kThreads) {
+      const int r = e / kChunk, k = e % kChunk;
+      if (k < kn) cp_async4(xb + r * kChunkLd + k, p.x + (r0 + r) * p.f + k0 + k);
+    }
+  }
+}
+
+// Phase 1, BMM.FBB: y's sign words of sum_k z_k * (+-s_j), every sum one
+// fmaf chain in k order from 0 (thread (tx, ty) holds rows ty + 16 i and
+// columns tx * 4 + j of the pass). The block's chunks of x, over its tiles
+// and passes, come in by cp.async one ahead of their use.
+__device__ void transform_fbb(const Params& p, float* smem) {
+  const int f4 = (p.f + 3) & ~3;
+  float* xs = smem;                            // [2][kFbbRows][kChunkLd]
+  float* ws = smem + 2 * kFbbRows * kChunkLd;  // [kChunk][kFbbCols]
+  float* mus = ws + kChunk * kFbbCols;         // [f4] BN mean
+  float* sds = mus + f4;                       // [f4] BN sd
+  float* sc = sds + f4;                        // [kFbbCols] the pass's scales
+  uint32_t* wt = (uint32_t*)(sc + kFbbCols);   // [wk][kFbbCols] its words
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int wh = (p.ho + 31) / 32;
+  const long long n_tiles = (p.n_in + kFbbRows - 1) / kFbbRows;
+  const int n_kc = (p.f + kChunk - 1) / kChunk;
+  const bool vec = (p.f & 3) == 0 && ((uintptr_t)p.x & 15) == 0;
+  uint32_t* y = (uint32_t*)p.y;
+  auto tile_rows = [&](long long t) {
+    return (int)min((long long)kFbbRows, p.n_in - t * kFbbRows);
+  };
+  if (blockIdx.x >= n_tiles) return;
+  load_chunk(p, xs, blockIdx.x * kFbbRows, tile_rows(blockIdx.x), 0, vec, tid);
+  // BN statistics and the weights in shared memory, so that no barrier
+  // waits on a global load: mu and sd once a block, the words (transposed,
+  // word w of column c at wt[w * 64 + c]) and scales of a pass's columns
+  // before its first chunk (every read of the last pass's was before a
+  // barrier every thread has passed)
+  if (p.mu)
+    for (int k = tid; k < p.f; k += kThreads) {
+      mus[k] = p.mu[k];
+      sds[k] = p.sd[k];
+    }
+  int step = 0;  // chunks of the stream so far: chunk `step` is in xs[step & 1]
+  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const long long r0 = t * kFbbRows;
+    const int rows = tile_rows(t);
+    for (int c0 = 0; c0 < p.ho; c0 += kFbbCols) {
+      if (t == blockIdx.x || p.ho > kFbbCols) {
+        for (int e = tid; e < p.wk * kFbbCols; e += kThreads) {
+          const int w = e / kFbbCols, col = c0 + e % kFbbCols;
+          wt[e] = col < p.ho ? p.w_a[(size_t)col * p.wk + w] : 0u;
+        }
+        if (tid < kFbbCols) sc[tid] = c0 + tid < p.ho ? p.s_a[c0 + tid] : 0.f;
       }
-      uint32_t wword[kMaxChunks];
+      float acc[kFbbRM][kFbbRN];
 #pragma unroll
-      for (int c = 0; c < kMaxChunks; ++c) {
-        const int j = c * 32 + lane;
-        wword[c] = (c < wh && j < p.ho) ? p.w_a[(size_t)j * p.wk + k0 / 32] : 0u;
-      }
-      const int kn = min(32, p.f - k0);
-      for (int kk = 0; kk < kn; ++kk) {
-        const float zk = __shfl_sync(kFull, z, kk);
+      for (int i = 0; i < kFbbRM; ++i)
 #pragma unroll
-        for (int c = 0; c < kMaxChunks; ++c) {
-          if (c >= wh) break;
-          // the dequantized weight: +s_j where the bit is 1, else -s_j
-          const uint32_t neg = (~(wword[c] >> kk) & 1u) << 31;
-          acc[c] = fmaf(zk, __uint_as_float(__float_as_uint(sj[c]) ^ neg),
-                        acc[c]);
+        for (int j = 0; j < kFbbRN; ++j) acc[i][j] = 0.f;
+      for (int kc = 0; kc < n_kc; ++kc, ++step) {
+        const int k0 = kc * kChunk, kn = min(kChunk, p.f - k0);
+        float* xb = xs + (step & 1) * kFbbRows * kChunkLd;
+        cp_async_wait_all();
+        __syncthreads();  // chunk `step` is in; every thread is past step - 1
+        float* next = xs + ((step + 1) & 1) * kFbbRows * kChunkLd;
+        if (kc + 1 < n_kc)
+          load_chunk(p, next, r0, rows, k0 + kChunk, vec, tid);
+        else if (c0 + kFbbCols < p.ho)
+          load_chunk(p, next, r0, rows, 0, vec, tid);
+        else if (t + gridDim.x < n_tiles)
+          load_chunk(p, next, r0 + (long long)gridDim.x * kFbbRows,
+                     tile_rows(t + gridDim.x), 0, vec, tid);
+        if (p.mu) {  // BN once an element: z = (x - mu) / sd
+          const int k = tid & 31;
+          if (k < kn) {
+            const float mu = mus[k0 + k], sd = sds[k0 + k];
+            for (int r = tid >> 5; r < rows; r += kWarps)
+              xb[r * kChunkLd + k] = (xb[r * kChunkLd + k] - mu) / sd;
+          }
+        }
+        {  // the chunk is word kc of each column's weights: +s_j where the
+           // bit is 1, else -s_j
+          const int c = tid & (kFbbCols - 1);
+          const uint32_t word = wt[kc * kFbbCols + c];
+          const float sj = sc[c];
+          for (int k = tid / kFbbCols; k < kn; k += kThreads / kFbbCols)
+            ws[k * kFbbCols + c] = __uint_as_float(
+                __float_as_uint(sj) ^ ((~(word >> k) & 1u) << 31));
+        }
+        __syncthreads();
+        int k = 0;
+        for (; k + 4 <= kn; k += 4) {
+          float4 w[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            w[q] = *(const float4*)(ws + (k + q) * kFbbCols + tx * kFbbRN);
+#pragma unroll
+          for (int i = 0; i < kFbbRM; ++i) {
+            const float4 z = *(const float4*)(xb + (ty + 16 * i) * kChunkLd + k);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const float zq = q == 0 ? z.x : q == 1 ? z.y : q == 2 ? z.z : z.w;
+              acc[i][0] = fmaf(zq, w[q].x, acc[i][0]);
+              acc[i][1] = fmaf(zq, w[q].y, acc[i][1]);
+              acc[i][2] = fmaf(zq, w[q].z, acc[i][2]);
+              acc[i][3] = fmaf(zq, w[q].w, acc[i][3]);
+            }
+          }
+        }
+        for (; k < kn; ++k) {
+          const float4 w = *(const float4*)(ws + k * kFbbCols + tx * kFbbRN);
+#pragma unroll
+          for (int i = 0; i < kFbbRM; ++i) {
+            const float zk = xb[(ty + 16 * i) * kChunkLd + k];
+            acc[i][0] = fmaf(zk, w.x, acc[i][0]);
+            acc[i][1] = fmaf(zk, w.y, acc[i][1]);
+            acc[i][2] = fmaf(zk, w.z, acc[i][2]);
+            acc[i][3] = fmaf(zk, w.w, acc[i][3]);
+          }
         }
       }
-    }
-    uint32_t* yw = (uint32_t*)p.y;
+      // signs: a nibble a thread and row, OR-ed over the 8 threads of a word
+      const int wd = c0 / 32 + (tx >> 3);
 #pragma unroll
-    for (int c = 0; c < kMaxChunks; ++c) {
-      if (c >= wh) break;
-      const int j = c * 32 + lane;
-      const uint32_t word = __ballot_sync(kFull, j < p.ho && acc[c] >= 0.f);
-      if (lane == 0) yw[r * wh + c] = word;
-    }
-    return;
-  }
-  // quantize_act (or packed input with unit scales), then BMM.BBF
-  float xs = 1.f;
-  const uint32_t* words = sw;
-  if (p.x) {
-    float sabs = 0.f;
-    for (int k0 = 0; k0 < p.f; k0 += 32) {
-      const int k = k0 + lane;
-      float z = 0.f;
-      if (k < p.f) {
-        z = p.x[r * p.f + k];
-        if (p.mu) z = (z - p.mu[k]) / p.sd[k];
-        sabs += fabsf(z);
+      for (int i = 0; i < kFbbRM; ++i) {
+        uint32_t nib = 0u;
+#pragma unroll
+        for (int j = 0; j < kFbbRN; ++j)
+          nib |= (uint32_t)(c0 + tx * kFbbRN + j < p.ho && acc[i][j] >= 0.f) << j;
+        uint32_t word = nib << ((tx & 7) * kFbbRN);
+        word |= __shfl_xor_sync(kFull, word, 1);
+        word |= __shfl_xor_sync(kFull, word, 2);
+        word |= __shfl_xor_sync(kFull, word, 4);
+        const int r = ty + 16 * i;
+        if ((tx & 7) == 0 && r < rows && wd < wh) y[(r0 + r) * wh + wd] = word;
       }
-      const uint32_t word = __ballot_sync(kFull, k < p.f && z >= 0.f);
-      if (lane == 0) sw[k0 / 32] = word;
     }
-    __syncwarp();
-    xs = warp_sum(sabs) / (float)p.f;
-  } else {
-    words = p.xw + r * p.wk;
   }
-  const float cs = (p.aggregate && p.col_scale) ? p.col_scale[r] : 1.f;
-  for (int j0 = 0; j0 < p.ho; j0 += 32) {
-    const int j = j0 + lane;
-    if (j >= p.ho) continue;
-    int pa = 0, ps = 0;
-    for (int w = 0; w < p.wk; ++w) {
-      const uint32_t xv = words[w];
-      pa += __popc(xv ^ p.w_a[(size_t)j * p.wk + w]);
-      if (p.w_s) ps += __popc(xv ^ p.w_s[(size_t)j * p.wk + w]);
+}
+
+// Phase 1, BMM.BBF: y (and ys) or, without aggregation, out.
+// quantize_act: chunks of 32 features of the tile's rows stream in by
+// cp.async, three ahead of their use across the block's tiles (a chunk is
+// 8 KB; fewer in flight leave the loads latency-bound); warp w takes rows
+// w, w + 8, ...: per row, lane k % 32 adds
+// its |z| in k order, one ballot gives the chunk's sign word, and the row
+// scale is warp_sum of the partials over f. Packed input words are staged
+// with unit scales. The products are mma tiles of xnor.cuh: warp w takes
+// rows (w % 4) * 16 .. + 16 of the tile; with a self branch warps 4-7
+// multiply w_s, else they take the column n-tiles 4-7 of the pass.
+__device__ void transform_bbf(const Params& p, uint32_t* smem) {
+  constexpr int kRowsPerWarp = kBbfRows / kWarps;
+  const int lda = xnor::pad_ld(p.wk);
+  const int kwc = min(p.wk, xnor::kKWords), ldb = xnor::pad_ld(kwc);
+  float* xs = (float*)smem;                 // [kBbfStages][kBbfRows][kChunkLd]
+  uint32_t* as = (uint32_t*)(xs + kBbfStages * kBbfRows * kChunkLd);  // [kBbfRows][lda]
+  float* xsc = (float*)(as + kBbfRows * lda);       // [kBbfRows] row scales
+  int* pbs = (int*)(xsc + kBbfRows);                // [2][kBbfCols] popc(w)
+  uint32_t* ba = (uint32_t*)(pbs + 2 * kBbfCols);   // [kBbfCols][ldb]
+  uint32_t* bself = ba + kBbfCols * ldb;            // [kBbfCols][ldb]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int slice = warp & 3, half = warp >> 2, g = lane >> 2, t4 = lane & 3;
+  const bool self = p.w_s && half;                  // this warp's weights
+  const int nt0 = p.w_s ? 0 : half * 4, nt1 = p.w_s ? 8 : half * 4 + 4;
+  const int wk4 = (p.wk + 3) & ~3;
+  const int n_cc = (p.ho + kBbfCols - 1) / kBbfCols;
+  const int n_kc = (p.wk + xnor::kKWords - 1) / xnor::kKWords;
+  const int n_xc = (p.f + kChunk - 1) / kChunk;    // chunks of an fp row
+  const bool resident = n_cc == 1 && n_kc == 1;  // weights staged once
+  const bool vec = (p.f & 3) == 0 && ((uintptr_t)p.x & 15) == 0;
+  const bool vec_x = (p.wk & 3) == 0 && ((uintptr_t)p.xw & 15) == 0;
+  const bool vec_w = (p.wk & 3) == 0 && ((uintptr_t)p.w_a & 15) == 0 &&
+                     ((uintptr_t)p.w_s & 15) == 0;
+  const long long n_tiles = (p.n_in + kBbfRows - 1) / kBbfRows;
+  // the block's fp chunks, tile after tile, form one stream: chunk s sits
+  // in stage s % kBbfStages, and kBbfStages - 1 chunks are in flight
+  const int total = (p.x && blockIdx.x < n_tiles)
+      ? (int)((n_tiles - 1 - blockIdx.x) / gridDim.x + 1) * n_xc : 0;
+  auto load = [&](int s) {  // one commit group a chunk, empty past the end
+    if (s < total) {
+      const int tile = s / n_xc, kc = s - tile * n_xc;
+      const long long r0 =
+          ((long long)blockIdx.x + (long long)gridDim.x * tile) * kBbfRows;
+      load_chunk(p, xs + (s % kBbfStages) * kBbfRows * kChunkLd, r0,
+                 (int)min((long long)kBbfRows, p.n_in - r0), kc * kChunk, vec,
+                 tid);
     }
-    // (count * row scale) * weight scale, the order of core/bmm.py
-    float ya = (float)(p.f - 2 * pa) * xs * p.s_a[j];
-    if (!p.aggregate) {
-      ((float*)p.out)[r * p.ho + j] = ya;
-      continue;
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  // this lane's BN feature of a chunk, fetched one chunk ahead
+  float mu_n = 0.f, sd_n = 1.f;
+  auto fetch = [&](int kc) {
+    const int k = kc * kChunk + lane;
+    if (p.mu && k < p.f) {
+      mu_n = p.mu[k];
+      sd_n = p.sd[k];
     }
-    if (p.col_scale) ya = ya * cs;
-    ((float*)p.y)[r * p.ho + j] = ya;
-    if (p.w_s) p.ys[r * p.ho + j] = (float)(p.f - 2 * ps) * xs * p.s_s[j];
+  };
+  if (total > 0) {
+    for (int s = 0; s < kBbfStages - 1; ++s) load(s);
+    fetch(0);
   }
-  __syncwarp();
+  int step = 0;  // chunks of the stream so far
+  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const long long r0 = t * kBbfRows;
+    const int rows = (int)min((long long)kBbfRows, p.n_in - r0);
+    if (p.x) {
+      float sabs[kRowsPerWarp];
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) sabs[i] = 0.f;
+      for (int kc = 0; kc < n_xc; ++kc, ++step) {
+        const float* xb = xs + (step % kBbfStages) * kBbfRows * kChunkLd;
+        asm volatile("cp.async.wait_group %0;\n" ::"n"(kBbfStages - 2));
+        __syncthreads();  // chunk `step` is in; every thread is past step - 1
+        load(step + kBbfStages - 1);
+        const int k = kc * kChunk + lane;
+        const bool in = k < p.f;
+        const float mu = mu_n, sd = sd_n;
+        fetch(kc + 1 < n_xc ? kc + 1 : 0);
+#pragma unroll
+        for (int i = 0; i < kRowsPerWarp; ++i) {
+          const int r = warp + kWarps * i;
+          if (r >= rows) break;  // uniform across the warp
+          float z = in ? xb[r * kChunkLd + lane] : 0.f;
+          if (in) {
+            if (p.mu) z = (z - mu) / sd;
+            sabs[i] += fabsf(z);
+          }
+          const uint32_t word = __ballot_sync(kFull, in && z >= 0.f);
+          if (lane == 0) as[r * lda + kc] = word;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) {
+        const int r = warp + kWarps * i;
+        if (r >= rows) break;
+        const float s = warp_sum(sabs[i]) / (float)p.f;
+        if (lane == 0) xsc[r] = s;
+        for (int w = p.wk + lane; w < wk4; w += 32) as[r * lda + w] = 0u;
+      }
+    } else {
+      xnor::stage_rows(as, lda, p.xw, r0, p.n_in, kBbfRows, p.wk, 0, p.wk,
+                       wk4, vec_x, tid);
+      if (tid < kBbfRows) xsc[tid] = 1.f;
+    }
+    const int my_rows = max(0, min(xnor::kMmaRows, rows - slice * xnor::kMmaRows));
+    for (int cc = 0; cc < n_cc; ++cc) {
+      const int c0 = cc * kBbfCols;
+      const int n_t = max(0, min((min(kBbfCols, p.ho - c0) + 7) / 8, nt1) - nt0);
+      int acc[xnor::kMmaCols / 8][4] = {};
+      int pa[2] = {0, 0};
+      for (int kc = 0; kc < n_kc; ++kc) {
+        const int w0 = kc * xnor::kKWords, kw = min(xnor::kKWords, p.wk - w0);
+        if (!resident || t == blockIdx.x) {
+          // zero past kw up to a whole mma step, as mma_popc takes B
+          const int kw8 = (kw + xnor::kMmaStep - 1) / xnor::kMmaStep * xnor::kMmaStep;
+          xnor::stage_rows(ba, ldb, p.w_a, c0, p.ho, kBbfCols, p.wk, w0, kw, kw8,
+                           vec_w, tid);
+          if (p.w_s)
+            xnor::stage_rows(bself, ldb, p.w_s, c0, p.ho, kBbfCols, p.wk, w0,
+                             kw, kw8, vec_w, tid);
+          if (kc == 0)  // column popcounts over the whole K
+            for (int e = tid; e < 2 * kBbfCols; e += kThreads) {
+              const uint32_t* w = e < kBbfCols ? p.w_a : p.w_s;
+              const int col = c0 + e % kBbfCols;
+              int s = 0;
+              if (w && col < p.ho)
+                for (int i = 0; i < p.wk; ++i) s += __popc(w[(size_t)col * p.wk + i]);
+              pbs[e] = s;
+            }
+        }
+        __syncthreads();
+        if (n_t > 0)
+          xnor::mma_popc(as + slice * xnor::kMmaRows * lda + w0, lda, my_rows,
+                         kw, (self ? bself : ba) + nt0 * 8 * ldb, ldb, n_t, lane,
+                         acc, pa);
+        if (!resident) __syncthreads();  // before the weights are restaged
+      }
+      float xr[2], cs[2];
+      long long row[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        pa[h] += __shfl_xor_sync(kFull, pa[h], 1);
+        pa[h] += __shfl_xor_sync(kFull, pa[h], 2);
+        const int r = slice * xnor::kMmaRows + g + 8 * h;
+        row[h] = r < rows ? r0 + r : -1;
+        xr[h] = r < rows ? xsc[r] : 0.f;
+        cs[h] = (r < rows && !self && p.aggregate && p.col_scale)
+                    ? p.col_scale[r0 + r] : 1.f;
+      }
+      const int* pb = pbs + (self ? kBbfCols : 0);
+      const float* scale = self ? p.s_s : p.s_a;
+      float* dst = self ? p.ys : (float*)(p.aggregate ? p.y : p.out);
+#pragma unroll
+      for (int nt = 0; nt < xnor::kMmaCols / 8; ++nt) {
+        if (nt >= n_t) break;
+#pragma unroll
+        for (int e1 = 0; e1 < 2; ++e1) {
+          const int cl = (nt0 + nt) * 8 + 2 * t4 + e1, col = c0 + cl;
+          if (col >= p.ho) continue;
+          const int pbc = pb[cl];
+          const float sc = scale[col];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (row[h] < 0) continue;
+            // n_bits - 2 popc(a ^ b) from the AND counts; then (count * row
+            // scale) * weight scale, the order of core/bmm.py, then the
+            // column scale (none without aggregation: the output is out)
+            const int cnt = p.f - 2 * (pa[h] + pbc) + 4 * acc[nt][2 * h + e1];
+            float v = (float)cnt * xr[h] * sc;
+            if (cs[h] != 1.f) v = v * cs[h];
+            dst[row[h] * p.ho + col] = v;
+          }
+        }
+      }
+      if (!resident) __syncthreads();  // before the column popcounts change
+    }
+    __syncthreads();  // before the next tile's words
+  }
 }
 
 // Warp `it`'s work item: tile-row `row` with item_ptr[row] <= it <
@@ -215,8 +516,8 @@ __device__ __forceinline__ void aggregate_fp(const Params& p, float* part,
   }
 }
 
-__global__ void __launch_bounds__(kWarps * 32) fused_layer_kernel(Params p) {
-  __shared__ uint32_t s_words[kWarps][kMaxWords];
+__global__ void __launch_bounds__(kThreads, 2) fused_layer_kernel(Params p) {
+  extern __shared__ uint4 s_tile[];
   __shared__ int2 s_hits[kWarps][walk::kHitsPerLoad];
   cg::grid_group grid = cg::this_grid();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -224,8 +525,10 @@ __global__ void __launch_bounds__(kWarps * 32) fused_layer_kernel(Params p) {
   const long long n_warps = (long long)gridDim.x * kWarps;
   const int wh = (p.ho + 31) / 32;
 
-  for (long long r = gw; r < p.n_in; r += n_warps)
-    transform_row(p, r, lane, s_words[warp]);
+  if (p.fbb)
+    transform_fbb(p, (float*)s_tile);
+  else
+    transform_bbf(p, (uint32_t*)s_tile);
   if (!p.aggregate) return;
   grid.sync();
 
@@ -303,38 +606,44 @@ __global__ void __launch_bounds__(kWarps * 32) fused_layer_kernel(Params p) {
 
 }  // namespace
 
-// Launch one layer cooperatively on `stream`; the grid is as many blocks as
-// can be resident at once, capped by the rows and items the layer has.
+// Launch one layer cooperatively on `stream`: the transform's dynamic shared
+// memory, and a grid of as many blocks as are resident at once with it,
+// capped by the transform's row tiles and by phase 3's tile-rows (a warp
+// each). A launch the card refuses returns its error.
 extern "C" int fused_layer(const void* params, void* stream) {
   Params p = *(const Params*)params;
-  if (p.wk > kMaxWords || (p.ho + 31) / 32 > kMaxChunks) return (int)cudaErrorInvalidValue;
+  if (p.wk > kMaxWords || (p.ho + 31) / 32 > kMaxChunks ||
+      p.wk != (p.f + 31) / 32)
+    return (int)cudaErrorInvalidValue;
   if (p.aggregate && !p.fbb &&
       walk::with_fp_layout(p.fp_sub, p.fp_cols, p.fp_vec,
                            [](auto, auto, auto) { return cudaSuccess; }) != cudaSuccess)
     return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int smem = transform_smem(p.f, p.fbb, p.w_s != nullptr);
+  int resident = 0;
+  cudaError_t e = launch::allow_smem(fused_layer_kernel, smem);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_layer_kernel,
-                                                      kWarps * 32, 0);
+    e = launch::resident_blocks(fused_layer_kernel, kThreads, smem, &resident);
   if (e != cudaSuccess) return (int)e;
-  long long want = (p.n_in + kWarps - 1) / kWarps;
-  long long rows = ((long long)p.n_tile_rows + kWarps - 1) / kWarps;
+  const int tile_rows = p.fbb ? kFbbRows : kBbfRows;
+  long long want = (p.n_in + tile_rows - 1) / tile_rows;
+  const long long rows = ((long long)p.n_tile_rows + kWarps - 1) / kWarps;
   if (rows > want) want = rows;
-  long long blocks = (long long)per_sm * sms;
-  if (want < blocks) blocks = want;
+  long long blocks = want < resident ? want : resident;
   if (blocks < 1) blocks = 1;
   void* args[] = {&p};
   e = cudaLaunchCooperativeKernel((const void*)fused_layer_kernel, dim3((unsigned)blocks),
-                                  dim3(kWarps * 32), args, 0, (cudaStream_t)stream);
+                                  dim3(kThreads), args, (size_t)smem,
+                                  (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// Registers a thread, static shared bytes and resident blocks per SM of the
-// fused kernel (one build serves every layout): out[0..2].
-extern "C" int fused_layer_attrs(int* out) {
-  static_assert(kWarps == walk::kBlockWarps, "fp_attributes' block size");
-  return (int)walk::fp_attributes(fused_layer_kernel, out);
+// Registers a thread, static shared bytes, resident blocks per SM and the
+// dynamic shared bytes of the fused kernel when the transform takes f
+// features in BMM.FBB (fbb) or BMM.BBF (with the self branch's weights or
+// without): out[0..3]. One build serves every kind and layout.
+extern "C" int fused_layer_attrs(int f, int fbb, int self_branch, int* out) {
+  return (int)launch::attributes(fused_layer_kernel, kThreads,
+                                 transform_smem(f, fbb, self_branch), out);
 }

@@ -5,12 +5,19 @@ Replaces the Pallas TPU kernel ``repro/kernels/bmm_kernel.py:bmm_xnor``
 A (M, Wk) and B (N, Wk) are ±1 matrices packed along K (B is the
 transposed weight). Output: (M, N) int32 ``n_bits - 2*popc(a^b)`` summed
 over the words, or (fused Step ⑥) (M, ceil(N/32)) sign words with the bits
-of columns past N zero. At the GNN shapes the kernel is bound by bytes
-(the int32 output); one thread computes one element, a warp covers 32
-consecutive columns of one row, and binarize mode stores one
-``__ballot_sync`` word per warp.
+of columns past N zero.
+
+The kernel is a tiled bit GEMM (``csrc/xnor.cuh``): a block keeps a column
+tile of B in shared memory and walks row tiles in a grid-stride loop. The
+launcher picks the route from N: up to 8 columns (the class layers) it runs
+``__popc(a ^ b)`` on register tiles of 4 x 4 outputs a thread, above that
+the b1 tensor-core AND-popc product on 16 x 64 warp tiles, each the faster
+of the two at its shapes on the H100 (``PERF.md``). It also works out each
+launch's tiles, shared memory and grid.
 """
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 
@@ -36,6 +43,12 @@ def bmm_xnor_plain(a_packed: torch.Tensor, b_packed: torch.Tensor,
     return bitops.pack_bits(out >= 0, axis=-1) if binarize else out
 
 
+def attributes(n: int, wk: int) -> Dict[str, int]:
+    """Registers, static and dynamic shared memory and resident blocks per
+    SM of the kernel that a launch at N columns and Wk words runs."""
+    return build.attributes("bmm", "bmm_xnor", n, wk)
+
+
 def bmm_xnor_cuda(a_packed: torch.Tensor, b_packed: torch.Tensor,
                   n_bits: int, binarize: bool = False) -> torch.Tensor:
     """Launch the XNOR-popc kernel on CUDA int32 bit-view operands."""
@@ -52,6 +65,10 @@ def bmm_xnor_cuda(a_packed: torch.Tensor, b_packed: torch.Tensor,
     b = b_packed.contiguous()
     width = bitops.padded_words(n) if binarize else n
     out = torch.empty((m, width), dtype=torch.int32, device=a.device)
+    if m == 0 or n == 0:
+        return out
+    if wk == 0:
+        raise ValueError("bmm_xnor_cuda needs at least one word of K")
     stream = torch.cuda.current_stream(a.device).cuda_stream
     build.check(build.library("bmm").bmm_xnor(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, wk, int(n_bits),

@@ -33,7 +33,8 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "pack": {"binarize_pack_f32": (_P, _P, _L, _I, _I, _P),
              "binarize_pack_bf16": (_P, _P, _L, _I, _I, _P)},
-    "bmm": {"bmm_xnor": (_P, _P, _P, _I, _I, _I, _I, _I, _P)},
+    "bmm": {"bmm_xnor": (_P, _P, _P, _L, _I, _I, _I, _I, _P),
+            "bmm_xnor_attrs": (_I, _I, _P)},
     "bspmm": {"bspmm_bits": (_P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _L, _I, _I, _I, _I, _I, _I, _P),
               "bspmm_fp": (_P, _P, _P, _P, _P, _P, _P, _P,
@@ -44,7 +45,8 @@ SIGNATURES = {
                    "bspmm_fp_grid": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L,
                                      _I, _I, _I, _I, _L, _I, _I, _I, _I, _P),
                    "bspmm_fp_grid_attrs": (_I, _I, _I, _P)},
-    "fused_layer": {"fused_layer": (_P, _P), "fused_layer_attrs": (_P,)},
+    "fused_layer": {"fused_layer": (_P, _P),
+                    "fused_layer_attrs": (_I, _I, _I, _P)},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -129,13 +131,14 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def attributes(name: str, fn: str, *layout: int) -> Dict[str, int]:
-    """Registers a thread, static shared bytes and resident blocks per SM of
-    a kernel, from its library's ``<fn>_attrs`` query (``cudaFuncGetAttributes``
-    and the occupancy calculator, 256 threads a block)."""
-    out = (ctypes.c_int * 3)()
+    """Registers a thread, static shared bytes, resident blocks per SM and
+    dynamic shared bytes of a kernel, from its library's ``<fn>_attrs``
+    query (``cudaFuncGetAttributes`` and the occupancy calculator, 256
+    threads a block); a query that sets no dynamic size reports 0."""
+    out = (ctypes.c_int * 4)()
     check(getattr(library(name), f"{fn}_attrs")(*layout, out), f"{fn}_attrs")
     return {"registers": out[0], "static_smem_bytes": out[1],
-            "blocks_per_sm": out[2]}
+            "blocks_per_sm": out[2], "dynamic_smem_bytes": out[3]}
 
 
 def check(status: int, what: str) -> None:

@@ -15,11 +15,14 @@ fuses per layer KIND, the four the model families compose
   agg) [-> ReLU] (SAGE / SAINT layers);
 * :func:`fc` — BN -> quantize_act -> BMM.BBF (SAINT's last layer).
 
-The CUDA kernel is cooperative: a transform phase (one warp per row), a
-grid barrier, per work item partial sums of the aggregation (at most
-``GROUPS_PER_ITEM`` groups of one tile-row), a barrier, and a combine phase
-that adds each tile-row's items in item order. On a CPU tensor each kind
-runs its plain version: the same transform with PyTorch ops, then
+The CUDA kernel is cooperative: a transform phase (one block per row
+tile: a register-tiled fp32 GEMM for BMM.FBB; quantize_act into a shared
+tile and the b1 tensor-core XNOR-popc tile of ``csrc/xnor.cuh`` for
+BMM.BBF), a grid barrier, per work item partial sums of the aggregation
+(at most ``GROUPS_PER_ITEM`` groups of one tile-row), a barrier, and a
+combine phase that adds each tile-row's items in item order. Its launcher
+sizes the shared memory and the grid. On a CPU tensor each kind runs its
+plain version: the same transform with PyTorch ops, then
 :func:`agg_fp` / :func:`agg_counts`, the BSpMM plain versions of
 ``bspmm_kernel`` (the order of the sums does not change the integer
 counts, and fp results are held to a tolerance of their sum of |terms|).
@@ -31,7 +34,7 @@ trace-time counters do; :data:`LAUNCHES` counts CUDA launches.
 from __future__ import annotations
 
 import ctypes
-from typing import TYPE_CHECKING, Optional
+from typing import TYPE_CHECKING, Dict, Optional
 
 import torch
 
@@ -167,6 +170,16 @@ class _Params(ctypes.Structure):
 
 MAX_IN_WORDS = 128   # csrc/fused_layer.cu kMaxWords
 MAX_OUT = 256        # 32 * kMaxChunks
+
+
+def attributes(f: int, fbb: bool = False,
+               self_branch: bool = False) -> Dict[str, int]:
+    """Registers, static and dynamic shared memory and resident blocks per
+    SM of the fused kernel when its transform takes ``f`` features in
+    BMM.FBB (``fbb``) or BMM.BBF, with the self branch's weights or
+    without (the dynamic shared memory depends on these alone)."""
+    return build.attributes("fused_layer", "fused_layer", f, int(fbb),
+                            int(self_branch))
 
 
 def _ptr(t: Optional[torch.Tensor], dev, dtype, what: str):

@@ -171,7 +171,7 @@ def test_fp_kernel_attributes(cuda):
             assert 0 < a["registers"] <= 255, a
             assert a["static_smem_bytes"] >= 8 * 128 * 8, a
             assert a["blocks_per_sm"] >= 1, a
-    a = build.attributes("fused_layer", "fused_layer")
+    a = fused_layer.attributes(7)
     assert 0 < a["registers"] <= 255 and a["blocks_per_sm"] >= 1, a
 
 

@@ -1,6 +1,7 @@
-"""The port stands alone: nothing under src/repro_torch/ and nothing in
-chip_smoke.py imports JAX or the reference package, and chip_smoke.py
-refuses to run without a CUDA device or outside a checkout."""
+"""The port stands alone: nothing under src/repro_torch/, in chip_smoke.py
+or in the port's GPU tools (tools/*.py) imports JAX or the reference
+package, and chip_smoke.py refuses to run without a CUDA device or outside
+a checkout."""
 import ast
 import os
 import shutil
@@ -16,7 +17,7 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 def _port_files():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"]
+        ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 
 
 def _imported(path: Path):
