@@ -11,7 +11,9 @@ result):
    per source, in parallel);
 2. parity — every kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it and at edge cases (N < 4, tail bits,
-   empty tile-rows, a ``pad_frdc``-padded matrix, F = 7; ``bmm_xnor`` at
+   empty tile-rows, a ``pad_frdc``-padded matrix, F = 7; the bits kernels
+   also at F = 160 and on an x one word past its buffer's start, where
+   their walk takes no vector loads; ``bmm_xnor`` at
    the tile edges M in {1, 15, 16, 17, 89,250}, K in {7, 255, 256, 257,
    500}, N in {1, 7, 8, 33, 64}, which take both of its routes). Integer
    kernels must match bit for bit; ``bspmm_fp`` may differ by fp32
@@ -28,11 +30,15 @@ result):
 4. times — each kernel's median ms at its main-path shape (CUDA events,
    after warm-up) beside its bound, its plain version and a PyTorch library
    call of the same function where one exists (``bspmm_fp`` also at F = 7,
-   every layer 2's width; ``bmm_xnor`` at each distinct shape the
+   every layer 2's width; ``bspmm_bits`` beside ``torch.sparse.mm`` of its
+   0/1 CSR with the +-1 features as float32, which gives the same counts
+   and is held equal to them, on Flickr and on Reddit x0.1; ``bmm_xnor`` at
+   each distinct shape the
    forwards give it, beside a bf16 ``torch.matmul`` of the unpacked +-1
-   operands); each forward's ms; registers, static and
-   dynamic shared memory and resident blocks per SM of the fp kernels and
-   of ``bmm_xnor``;
+   operands); each forward's ms; device ms (torch.profiler) of the BSpMM
+   kernels and their yardsticks; registers, static and dynamic shared
+   memory and resident blocks per SM of the BSpMM kernels and of
+   ``bmm_xnor``;
 5. serve parity — the 2D block-grid BSpMM kernels and the fused per-layer
    kernel against their plain versions on the card at the serve bucket's
    shapes (and the fused layer kinds also against the unfused layer
@@ -48,7 +54,9 @@ result):
    program after warmup; (b) launches the grid kernels and no 1D BSpMM,
    (c) one fused launch per layer and nothing else; an artifact saved from
    (a) restores into a new store and serves the same answers;
-7. serve times — the grid and fused kernels at the bucket (the fused
+7. serve times — the grid and fused kernels at the bucket (the bits grid
+   also at a full-width block and on device time, beside the
+   ``torch.sparse.mm`` yardstick; the fused
    layer also per kind, whole and transform-only, beside its yardstick:
    fp32 ``torch.matmul(z, w_eff)`` for ``gcn_bin_l1``, a bf16
    ``torch.matmul`` for the BBF kinds, and its bound), their registers,
@@ -206,6 +214,38 @@ def group_bytes(adj) -> int:
     return 4 * adj.grp_ptr.numel() + 2 * 8 * 4 * real_groups(adj)
 
 
+def frdc_csr(torch, adj):
+    """The 0/1 pattern of an FRDC matrix as a CSR tensor of float32 ones on
+    its device, (n_tile_rows * 4, n_cols), decoded from the tiles of its
+    real groups: ``torch.sparse.mm`` of it with +-1 features as float32
+    gives the bits kernels' trinary counts (integers below 2^24, exact)."""
+    tiles = adj.tiles[:real_groups(adj)]
+    gi, ti = torch.nonzero(tiles, as_tuple=True)
+    t = tiles[gi, ti]
+    rows, cols = [], []
+    for i in range(4):
+        for j in range(4):
+            hit = ((t >> (4 * i + j)) & 1).bool()
+            rows.append(adj.group_row[gi[hit]].long() * 4 + i)
+            cols.append(adj.col_idx[gi[hit], ti[hit]].long() * 4 + j)
+    idx = torch.stack([torch.cat(rows), torch.cat(cols)])
+    return torch.sparse_coo_tensor(
+        idx, torch.ones(idx.shape[1], device=idx.device),
+        (adj.n_tile_rows * 4, adj.n_cols)).coalesce().to_sparse_csr()
+
+
+def bits_yardstick(torch, bitops, adj, x, n_feat, counts):
+    """(call, operand) of the bits kernels' library yardstick, after holding
+    its result equal to the kernel's ``counts``."""
+    csr = frdc_csr(torch, adj)
+    pm1 = bitops.unpack_pm1(x, n_feat).contiguous()
+    got = torch.sparse.mm(csr, pm1)
+    if not torch.equal(got, counts.to(torch.float32)):
+        raise AssertionError("bits yardstick: torch.sparse.mm differs from "
+                             "the kernel's counts")
+    return lambda: torch.sparse.mm(csr, pm1)
+
+
 def run(torch) -> dict:
     from repro_torch.core import bitops, frdc
     from repro_torch.graphs.datasets import make_dataset
@@ -294,11 +334,15 @@ def run(torch) -> dict:
                  frdc.from_dense(small, device=dev)]
     edge_adjs.append(frdc.pad_frdc(edge_adjs[1], 64,
                                    n_groups=edge_adjs[1].n_groups + 7))
-    bits_cases = [(adjs["flickr"]["binary"], HIDDEN),
-                  (adjs["reddit"]["binary"], HIDDEN)]
-    bits_cases += [(a, f) for a in edge_adjs for f in (7, 100)]
-    for adj, f in bits_cases:
-        x = rand_words(adj.n_cols, f)
+    # (adjacency, F, words x's base lies past its buffer's start)
+    bits_cases = [(adjs["flickr"]["binary"], HIDDEN, 0),
+                  (adjs["flickr"]["binary"], HIDDEN, 1),
+                  (adjs["reddit"]["binary"], HIDDEN, 0)]
+    bits_cases += [(a, f, 0) for a in edge_adjs for f in (7, 100, 160)]
+    for adj, f, off in bits_cases:
+        wf = bitops.padded_words(f)
+        x = rand_words(adj.n_cols + 1, f).reshape(-1)[
+            off:off + adj.n_cols * wf].view(adj.n_cols, wf)
         for binz in (False, True):
             for mode in ("s3_two_popc", "s2_and_andnot"):
                 got = bspmm_kernel.bspmm_bits_cuda(adj, x, f, binz, mode)
@@ -401,6 +445,8 @@ def run(torch) -> dict:
                                   torch.ones(rows.size, device=dev),
                                   (n_fl, n_fl)).coalesce().to_sparse_csr()
     r4 = adj_b.n_tile_rows * 4
+    bits_lib = bits_yardstick(torch, bitops, adj_b, h_w, HIDDEN,
+                              bspmm_kernel.bspmm_bits_cuda(adj_b, h_w, HIDDEN, False))
 
     specs = {
         "binarize_pack": (
@@ -421,7 +467,7 @@ def run(torch) -> dict:
             f"({n_fl}, 2) words -> ({r4}, {HIDDEN}) int32 counts, s3",
             lambda: bspmm_kernel.bspmm_bits_cuda(adj_b, h_w, HIDDEN, False),
             lambda: bspmm_kernel.bspmm_bits_plain(adj_b, h_w, HIDDEN, False),
-            None,
+            bits_lib,
             bound(group_bytes(adj_b) + 4 * h_w.numel() + 4 * r4 * HIDDEN,
                   [(2 * adj_b.nnz * HIDDEN, INT8_TC_OPS_PER_S)])),
         "bspmm_fp": (
@@ -445,10 +491,11 @@ def run(torch) -> dict:
     r_bound = bound(group_bytes(adj_r) + 4 * h_r.numel()
                     + 4 * adj_r.n_tile_rows * 4 * HIDDEN,
                     [(2 * adj_r.nnz * HIDDEN, INT8_TC_OPS_PER_S)])[0]
-    r_ms = cuda_ms(torch, lambda: bspmm_kernel.bspmm_bits_cuda(
-        adj_r, h_r, HIDDEN, False))
+    r_call = lambda: bspmm_kernel.bspmm_bits_cuda(adj_r, h_r, HIDDEN, False)  # noqa: E731
+    r_lib = bits_yardstick(torch, bitops, adj_r, h_r, HIDDEN, r_call())
     log(f"time bspmm_bits reddit-0.1 [{adj_r.n_groups} groups, {adj_r.nnz} "
-        f"edges]: kernel {r_ms:.4f} ms, bound {r_bound:.4f} ms")
+        f"edges]: kernel {cuda_ms(torch, r_call):.4f} ms, bound {r_bound:.4f} "
+        f"ms, library {cuda_ms(torch, r_lib):.4f} ms (torch.sparse.mm)")
     # bspmm_fp at every layer 2's width (F = 7), beside its own yardstick
     n_cls = flickr.n_classes
     h7 = card(rng.standard_normal((n_fl, n_cls)).astype(np.float32))
@@ -464,6 +511,11 @@ def run(torch) -> dict:
         f"bound {f7_bound[0]:.4f} ms ({f7_bound[1]}), library "
         f"{f7['torch.sparse.mm']:.4f} ms (torch.sparse.mm)")
     log("device ms (torch.profiler): " + json.dumps({
+        f"bspmm_bits F={HIDDEN}": device_ms(
+            torch, lambda: bspmm_kernel.bspmm_bits_cuda(adj_b, h_w, HIDDEN, False)),
+        f"torch.sparse.mm bits F={HIDDEN}": device_ms(torch, bits_lib),
+        f"bspmm_bits reddit-0.1 F={HIDDEN}": device_ms(torch, r_call),
+        f"torch.sparse.mm reddit-0.1 F={HIDDEN}": device_ms(torch, r_lib),
         f"bspmm_fp F={HIDDEN}": device_ms(
             torch, lambda: bspmm_kernel.bspmm_fp_cuda(adj_g, h_fp)),
         f"torch.sparse.mm F={HIDDEN}": device_ms(
@@ -498,6 +550,9 @@ def run(torch) -> dict:
     log_attributes(torch, build, bspmm_kernel, {
         "bspmm_fp F=64": ("bspmm", "bspmm_fp", h_fp, HIDDEN),
         f"bspmm_fp F={n_cls}": ("bspmm", "bspmm_fp", h7, n_cls)})
+    log("kernel attributes bspmm_bits (words a row, s2): " + json.dumps({
+        f"{w}, {s2}": build.attributes("bspmm", "bspmm_bits", w, s2)
+        for w in (1, 2, 4) for s2 in (0, 1)}))
     log("forward ms: " + json.dumps(forward_ms))
     log(f"phases 1-4: {time.perf_counter() - t_start:.1f} s")
     records += run_serve(torch, flickr)
@@ -619,8 +674,6 @@ def fused_kinds(torch, fused_layer, bitops, card, rng, d) -> None:
 # why a kernel has no library yardstick (library_ms null)
 NO_LIBRARY = {
     "binarize_pack": "no PyTorch call packs sign bits into words",
-    "bspmm_bits": "no PyTorch call takes packed +-1 words",
-    "bspmm_bits_grid": "no PyTorch call takes packed +-1 words",
     "fused_layer": "no single PyTorch call computes a whole layer "
                    "(BN, binary transform, aggregation)",
 }
@@ -974,6 +1027,10 @@ def run_serve(torch, flickr) -> list:
         return fused_layer.gcn_bbf_fbf_plain(h, None, q.w2, adj_b)
 
     wh = -(-HIDDEN // 32)
+    grid_call = lambda: bspmm_kernel.bspmm_bits_grid_cuda(  # noqa: E731
+        bin_b, h_pad, HIDDEN, False, plan=grid_bits)
+    grid_lib = bits_yardstick(torch, bitops, bin_b, h_pad, HIDDEN, grid_call())
+    full_bits = bspmm_kernel._block_plan((GRID_BLOCK[0], None), HIDDEN, True)
     fused_bytes = (4 * n_pad * f_fl + 8 * f_fl + 4 * HIDDEN * (q.w1.packed.shape[1] + 1)
                    + group_bytes(bin_b) + 4 * (bin_b.n_tile_rows + 1)
                    + 4 * n_pad * wh                            # layer 1 out
@@ -989,7 +1046,7 @@ def run_serve(torch, flickr) -> list:
                                                       False, plan=grid_bits),
             lambda: bspmm_kernel.bspmm_bits_grid_plain(bin_b, h_pad, HIDDEN,
                                                        False, plan=grid_bits),
-            None,
+            grid_lib,
             bound(group_bytes(bin_b) + 4 * h_pad.numel() + 4 * n_pad * HIDDEN,
                   [(2 * nnz["bin"] * HIDDEN, INT8_TC_OPS_PER_S)])),
         "bspmm_fp_grid": (
@@ -1022,9 +1079,17 @@ def run_serve(torch, flickr) -> list:
         x_pad=x_pad, h_pad=h_pad, bn=bn, q=q, w1=w1, w1b=w1b, w2=w2,
         bin_b=bin_b, adj_b=adj_b, items=items, nnz=nnz))
     log("device ms (torch.profiler): " + json.dumps({
+        f"bspmm_bits_grid block {GRID_BLOCK}": device_ms(torch, grid_call),
+        f"bspmm_bits_grid block {(GRID_BLOCK[0], None)}": device_ms(
+            torch, lambda: bspmm_kernel.bspmm_bits_grid_cuda(
+                bin_b, h_pad, HIDDEN, False, plan=full_bits)),
+        "torch.sparse.mm bits": device_ms(torch, grid_lib),
         "bspmm_fp_grid": device_ms(torch, lambda: bspmm_kernel.bspmm_fp_grid_cuda(
             adj_b, y_pad, grid_fp)),
         "torch.sparse.mm": device_ms(torch, lambda: torch.sparse.mm(csr, y_pad))}))
+    log("kernel attributes bspmm_bits_grid (words a block, s2): " + json.dumps({
+        f"{w}, {s2}": build.attributes("bspmm_grid", "bspmm_bits_grid", w, s2)
+        for w in (1, 2) for s2 in (0, 1)}))
     log_attributes(torch, build, bspmm_kernel, {
         f"bspmm_fp_grid F={n_cls} block {GRID_BLOCK}": (
             "bspmm_grid", "bspmm_fp_grid", y_pad,

@@ -36,7 +36,8 @@
 //      then scaled as (count * row scale) * weight scale [* column scale].
 //   2. aggregate: one warp per work item (at most `chunk` groups of one
 //      tile-row, from item_ptr), walking its groups in order (walk.cuh) and
-//      storing the item's partial sums.
+//      storing the item's partial sums; the counts walk takes up to 4 words
+//      of y a pass, with the register bit transpose (walk::bits).
 //   3. combine: one warp per tile-row adds its items' partials in item order,
 //      then applies the row scale, the self branch and the ReLU, or the sign
 //      (with the tail bits past the width cleared).
@@ -500,6 +501,29 @@ __device__ __forceinline__ void find_item(const Params& p, long long it,
   *g1 = min(*g0 + p.chunk, p.grp_ptr[lo + 1]);
 }
 
+// Phase 2 for one counts work item: its partial sums, every word of y in
+// passes of kW words (walk::bits), to `part`.
+template <int kW, bool kS2>
+__device__ __forceinline__ void aggregate_counts(const Params& p, int32_t* part,
+                                                 int g0, int g1, int wh,
+                                                 int lane) {
+  const uint32_t* y = (const uint32_t*)p.y;
+  const bool vec = wh % kW == 0 && (uintptr_t)y % (4 * kW) == 0;
+  for (int w = 0; w < wh; w += kW) {
+    const int nw = min(kW, wh - w);
+    int acc[kTile][kW] = {};
+    walk::bits<kW, kS2, true>(p.tiles, p.col_idx, y, g0, g1, w, nw, wh,
+                              vec && nw == kW, p.n_in, lane, acc);
+#pragma unroll
+    for (int j = 0; j < kW; ++j) {
+      if (j >= nw) break;
+#pragma unroll
+      for (int i = 0; i < kTile; ++i)
+        part[i * wh * 32 + (w + j) * 32 + lane] = acc[i][j];
+    }
+  }
+}
+
 // Phase 2 for one fp work item: its partial sums, every column, to `part`.
 template <int kSub, int kCols, bool kVec>
 __device__ __forceinline__ void aggregate_fp(const Params& p, float* part,
@@ -540,13 +564,17 @@ __global__ void __launch_bounds__(kThreads, 2) fused_layer_kernel(Params p) {
     find_item(p, it, &row, &g0, &g1);
     if (p.fbb) {
       int32_t* part = (int32_t*)p.part + it * kTile * width;
-      for (int w = 0; w < wh; ++w) {
-        int acc[kTile] = {0, 0, 0, 0};
-        walk::bits<true>(p.tiles, p.col_idx, (const uint32_t*)p.y, g0, g1, w, wh,
-                   p.n_in, p.s2, lane, acc);
-#pragma unroll
-        for (int i = 0; i < kTile; ++i) part[i * width + w * 32 + lane] = acc[i];
+#define AGGREGATE(W)                                                    \
+  if (p.s2)                                                             \
+    aggregate_counts<W, true>(p, part, g0, g1, wh, lane);               \
+  else                                                                  \
+    aggregate_counts<W, false>(p, part, g0, g1, wh, lane);
+      switch (walk::bits_pass(wh)) {
+        case 1: AGGREGATE(1) break;
+        case 2: AGGREGATE(2) break;
+        default: AGGREGATE(4)
       }
+#undef AGGREGATE
     } else {
       float* part = (float*)p.part + it * kTile * width;
 #define AGGREGATE(S, C, V)                                              \

@@ -1,11 +1,12 @@
 // FRDC group walks shared by the BSpMM kernels: the 1D kernels (bspmm.cu),
 // the 2D block grid (bspmm_grid.cu) and the fused per-layer kernel
-// (fused_layer.cu).
+// (fused_layer.cu), and the work split of the 1D and grid kernels.
 //
 // A walk adds the groups [g0, g1) of one tile-row into the four row
 // accumulators a warp holds, in group order: one load brings the tiles and
-// tile-column ids of 4 groups (lane k holds slot k); neighbour rows at or
-// past n_x_rows read as 0.
+// tile-column ids of 4 groups (lane k holds slot k), and the next batch's
+// load is issued before this one's gathers; neighbour rows at or past
+// n_x_rows read as 0.
 // kCoherent loads the gathered rows past L1 (ld.global.cg): the fused kernel
 // reads rows that other blocks wrote earlier in the same launch.
 #pragma once
@@ -39,50 +40,174 @@ __device__ __forceinline__ uint32_t adjacency_word(uint32_t tile, int lane,
   return __reduce_or_sync(kFull, part);
 }
 
-// Trinary popc counts of word w of packed +-1 rows x (row stride wf): lane f
-// adds feature w*32+f of the four rows (Steps 2-5; s3 = 2 popc(a&b) -
-// popc(a), s2 = popc(a&b) - popc(a&~b)).
-template <bool kCoherent = false>
+// ---------------------------------------------------------------------------
+// The bits walk: trinary popc counts of packed +-1 rows x (Steps 2-5).
+//
+// A pass covers nw <= kW words (kW in {1, 2, 4}) of every gathered row, so a
+// group's tiles and col_idx are loaded, and its four adjacency words built
+// (Step 3: a __reduce_or_sync each), once for up to 4 words. Per load batch
+// lane k gathers, for each group, words [w, w + nw) of neighbour row
+// col_idx[g, k / 4] * 4 + k % 4 (Step 2): one 8- or 16-byte load where the
+// caller found x's base and row stride aligned (`vec`), else nw 4-byte loads.
+// Each word's 32 x 32 bit block (row k = neighbour k) is then transposed in
+// registers by transpose32, so lane f holds bit k = neighbour k's bit of
+// feature w*32 + f (Step 4, LSB-first as bitops.bit_transpose_32 gives it),
+// and lane f adds the trinary popc of the four rows (Step 5): s3 = 2 popc(a
+// & b) - popc(a), s2 = popc(a & b) - popc(a & ~b). A group and word cost
+// about 20 instructions of transpose and 12-20 of popc whatever the group's
+// density: at the 7-9 edges a group of Flickr and Reddit that beats adding
+// each hit neighbour's +-1 (tools/bits_variants.py, "edges").
+
+// The 32 x 32 bit block whose row k is lane k's x, transposed: lane f gets
+// bit k = bit f of lane k's x (Hacker's Delight 7-3, across lanes). Round j
+// swaps the off-diagonal j x j blocks: a lane with bit j clear keeps its
+// columns with bit j clear and takes those of its partner (lane ^ j), moved
+// up by j; the partner keeps its columns with bit j set and takes this
+// lane's, moved down by j. Each move is a rotation that wraps no bit.
+__device__ __forceinline__ uint32_t transpose32(uint32_t x, int lane) {
+#pragma unroll
+  for (int j = 16; j > 0; j >>= 1) {
+    const uint32_t low_cols = 0xffffffffu / ((1u << j) + 1u);  // bit j clear
+    const bool low = (lane & j) == 0;
+    const uint32_t keep = low ? low_cols : ~low_cols;
+    const uint32_t give = x & ~keep;
+    const uint32_t sent = __funnelshift_l(give, give, low ? 32 - j : j);
+    x = (x & keep) | __shfl_xor_sync(kFull, sent, j);
+  }
+  return x;
+}
+
+// One group's counts: slot group q of the batch (its tiles in my_tile),
+// gathered words xk. tools/bits_variants.py swaps this function for the
+// edge-driven candidate.
+template <int kW, bool kS2>
+__device__ __forceinline__ void bits_group(uint32_t my_tile, int q,
+                                           const uint32_t xk[kW], int nw,
+                                           int lane, int acc[kTile][kW]) {
+  uint32_t a[kTile];
+#pragma unroll
+  for (int i = 0; i < kTile; ++i) a[i] = adjacency_word(my_tile, lane, q, i);
+#pragma unroll
+  for (int j = 0; j < kW; ++j) {
+    if (j >= nw) break;  // uniform across the warp
+    const uint32_t bt = transpose32(xk[j], lane);
+#pragma unroll
+    for (int i = 0; i < kTile; ++i) {
+      if constexpr (kS2)
+        acc[i][j] += __popc(a[i] & bt) - __popc(a[i] & ~bt);
+      else
+        acc[i][j] += 2 * __popc(a[i] & bt) - __popc(a[i]);
+    }
+  }
+}
+// end bits_group
+
+template <bool kCoherent, int kW>
+__device__ __forceinline__ void gather_words(const uint32_t* p, int nw,
+                                             bool vec, uint32_t v[kW]) {
+  if constexpr (kW == 2) {
+    if (vec) {
+      const uint2 t = load<kCoherent>(reinterpret_cast<const uint2*>(p));
+      v[0] = t.x;
+      v[1] = t.y;
+      return;
+    }
+  } else if constexpr (kW == 4) {
+    if (vec) {
+      const uint4 t = load<kCoherent>(reinterpret_cast<const uint4*>(p));
+      v[0] = t.x;
+      v[1] = t.y;
+      v[2] = t.z;
+      v[3] = t.w;
+      return;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kW; ++j) v[j] = j < nw ? load<kCoherent>(p + j) : 0u;
+}
+
+// Adds the groups [g0, g1) of one tile-row into acc: words [w, w + nw) of
+// rows x (row stride wf words), nw <= kW; lane f's acc[i][j] is row i's
+// count of feature (w + j) * 32 + f. `vec`: one kW-word load a row (nw ==
+// kW, and x + w and wf aligned to it).
+template <int kW, bool kS2, bool kCoherent = false>
 __device__ __forceinline__ void bits(const int32_t* __restrict__ tiles,
                                      const int32_t* __restrict__ col_idx,
                                      const uint32_t* __restrict__ x, int g0,
-                                     int g1, int w, int wf, long long n_x_rows,
-                                     int s2, int lane, int acc[kTile]) {
+                                     int g1, int w, int nw, int wf, bool vec,
+                                     long long n_x_rows, int lane,
+                                     int acc[kTile][kW]) {
+  int next_tile = 0, next_col = 0;
+  if (lane / kGroup < g1 - g0) {
+    next_tile = tiles[(size_t)g0 * kGroup + lane];
+    next_col = col_idx[(size_t)g0 * kGroup + lane];
+  }
   for (int gb = g0; gb < g1; gb += kGroupsPerLoad) {
     const int n_g = min(kGroupsPerLoad, g1 - gb);
-    const bool in = lane / kGroup < n_g;
-    const size_t idx = (size_t)gb * kGroup + lane;
-    const uint32_t my_tile = in ? (uint32_t)tiles[idx] : 0u;
-    const int my_col = in ? col_idx[idx] : 0;
-    uint32_t xk[kGroupsPerLoad];
+    const uint32_t my_tile = (uint32_t)next_tile;
+    const int my_col = next_col;
+    const int gn = gb + kGroupsPerLoad;
+    next_tile = next_col = 0;
+    if (lane / kGroup < g1 - gn) {
+      next_tile = tiles[(size_t)gn * kGroup + lane];
+      next_col = col_idx[(size_t)gn * kGroup + lane];
+    }
+    uint32_t xk[kGroupsPerLoad][kW];
 #pragma unroll
     for (int q = 0; q < kGroupsPerLoad; ++q) {
       const int col = __shfl_sync(kFull, my_col, q * kGroup + (lane >> 2));
       const long long row = (long long)col * kTile + (lane & 3);
-      xk[q] = (q < n_g && row < n_x_rows) ? load<kCoherent>(x + row * wf + w)
-                                          : 0u;
+      if (q < n_g && row < n_x_rows) {
+        gather_words<kCoherent, kW>(x + row * wf + w, nw, vec, xk[q]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kW; ++j) xk[q][j] = 0u;
+      }
     }
 #pragma unroll
     for (int q = 0; q < kGroupsPerLoad; ++q) {
       if (q >= n_g) break;  // uniform across the warp
-      uint32_t a[kTile];
-#pragma unroll
-      for (int i = 0; i < kTile; ++i) a[i] = adjacency_word(my_tile, lane, q, i);
-      uint32_t bt = 0u;
-#pragma unroll
-      for (int f = 0; f < 32; ++f) {
-        const uint32_t b = __ballot_sync(kFull, (xk[q] >> f) & 1u);
-        if (lane == f) bt = b;
-      }
-#pragma unroll
-      for (int i = 0; i < kTile; ++i) {
-        if (s2)
-          acc[i] += __popc(a[i] & bt) - __popc(a[i] & ~bt);
-        else
-          acc[i] += 2 * __popc(a[i] & bt) - __popc(a[i]);
-      }
+      bits_group<kW, kS2>(my_tile, q, xk[q], nw, lane, acc);
     }
   }
+}
+
+// Blocks a SM that the bits kernels of kW-word passes ask the compiler to
+// fit (__launch_bounds__): 64 registers a thread at up to 2 words, where 4
+// blocks beat 3 by 14% on Flickr at F = 64 (tools/bits_variants.py); 4-word
+// passes keep their ~100 registers.
+__host__ __device__ constexpr int bits_min_blocks(int kw) {
+  return kw <= 2 ? 4 : 2;
+}
+
+// Words a bits pass takes for feature blocks of `words` words.
+__host__ __device__ constexpr int bits_pass(int words) {
+  return words <= 1 ? 1 : words <= 2 ? 2 : 4;
+}
+
+// Calls fn(W, S2), std::integral_constants, for the built pass width
+// bits_pass(words) and trinary formula; the bits launchers pick their
+// kernel instance with it.
+template <class Fn>
+cudaError_t with_bits_pass(int words, int s2, Fn&& fn) {
+  using S3 = std::false_type;
+  using S2 = std::true_type;
+  switch (bits_pass(words)) {
+    case 1:
+      return s2 ? fn(std::integral_constant<int, 1>(), S2())
+                : fn(std::integral_constant<int, 1>(), S3());
+    case 2:
+      return s2 ? fn(std::integral_constant<int, 2>(), S2())
+                : fn(std::integral_constant<int, 2>(), S3());
+    default:
+      return s2 ? fn(std::integral_constant<int, 4>(), S2())
+                : fn(std::integral_constant<int, 4>(), S3());
+  }
+}
+
+// Sign word of four row accumulators, bits past `keep` cleared.
+__device__ __forceinline__ uint32_t sign_word(int v, uint32_t keep) {
+  return __ballot_sync(kFull, v >= 0) & keep;
 }
 
 // ---------------------------------------------------------------------------
@@ -289,62 +414,98 @@ __device__ __forceinline__ bool last_arrival(int32_t* counter, int count,
 }
 
 // ---------------------------------------------------------------------------
-// The fp row-block kernels' CTA (bspmm.cu's 1D grid, bspmm_grid.cu's 2D grid)
+// The row-block kernels' CTA: the work split of bspmm.cu's 1D grids and
+// bspmm_grid.cu's 2D grids, bits and fp alike.
 //
 // Heavy tile-rows (more than `heavy` groups; heavy >= kChunk) are cut into
 // work items in group space: chunk k is the groups [k*kChunk, (k+1)*kChunk)
 // below grp_ptr[R]. It meets at most two heavy tile-rows, the one holding
 // its first group (slot 0) and one starting inside it (slot 1), so a warp
 // finds its items from group_row and grp_ptr alone, with nothing built
-// beforehand. Items write partial sums to scratch[chunk][slot][4][f]; the
+// beforehand. Items write partial sums to scratch item chunk * 2 + slot; the
 // warp that takes a tile-row's last ticket (row_done[row * n_fb + fb]) adds
 // its items in chunk order and stores the row. The chunk CTAs come first in
 // the launch, so the hub rows' items start first. Row CTAs own tb_rows
 // tile-rows each; their warps walk the light tile-rows whole, round-robin,
-// and store them (an empty tile-row stores 0.0). Every output is a fixed sum
+// and store them (an empty tile-row stores 0). Every output is a fixed sum
 // in a fixed order, so two runs give the same bits.
 constexpr int kChunk = 16;
 constexpr int kBlockWarps = 8;
 
-struct FpGrid {
+struct Split {
   const int32_t* grp_ptr;
   const int32_t* group_row;
+  int32_t* row_done;   // (n_tile_rows, n_fb) zeros
+  int n_tile_rows;
+  int n_chunk_blocks;  // chunk_blocks(n_groups)
+  int tb_rows;         // tile-rows of a row CTA
+  int heavy;
+};
+
+// CTAs of chunk items for n_groups groups (a warp a chunk).
+inline int chunk_blocks(long long n_groups) {
+  const long long chunks = (n_groups + kChunk - 1) / kChunk;
+  return (int)((chunks + kBlockWarps - 1) / kBlockWarps);
+}
+
+// This CTA's share of the split, for an op with
+//   row(tr, g0, g1):      walk light tile-row tr whole and store it;
+//   part(item, g0, g1):   walk groups of a heavy row, store scratch item;
+//   combine(r, k0, k1, s0): add heavy row r's items k0 * 2 + s0, (k0 + 1) *
+//                         2, ..., k1 * 2 in that order and store the row.
+template <class Op>
+__device__ __forceinline__ void split_block(const Split& s, Op& op, int lane,
+                                            int warp) {
+  if ((int)blockIdx.x >= s.n_chunk_blocks) {
+    const int tr0 = ((int)blockIdx.x - s.n_chunk_blocks) * s.tb_rows;
+    const int tr1 = min(tr0 + s.tb_rows, s.n_tile_rows);
+    for (int tr = tr0 + warp; tr < tr1; tr += kBlockWarps) {
+      const int g0 = s.grp_ptr[tr], g1 = s.grp_ptr[tr + 1];
+      if (g1 - g0 <= s.heavy) op.row(tr, g0, g1);
+    }
+    return;
+  }
+  const int k = (int)blockIdx.x * kBlockWarps + warp;
+  const long long lo = (long long)k * kChunk;
+  const int g_end = s.grp_ptr[s.n_tile_rows];
+  if (lo >= g_end) return;
+  const int hi = (int)min(lo + kChunk, (long long)g_end);
+  const int first = s.group_row[lo], last = s.group_row[hi - 1];
+#pragma unroll
+  for (int slot = 0; slot < 2; ++slot) {
+    const int r = slot ? last : first;
+    if (slot && r == first) break;
+    const int gr0 = s.grp_ptr[r], gr1 = s.grp_ptr[r + 1];
+    if (gr1 - gr0 <= s.heavy) continue;
+    op.part(k * 2 + slot, max((int)lo, gr0), min(hi, gr1));
+    const int k0 = gr0 / kChunk, k1 = (gr1 - 1) / kChunk;
+    if (last_arrival(s.row_done + (size_t)r * gridDim.y + blockIdx.y,
+                     k1 - k0 + 1, lane))
+      op.combine(r, k0, k1, gr0 != k0 * kChunk);
+  }
+}
+
+// ---- fp ------------------------------------------------------------------
+struct FpGrid {
+  Split s;
   const int32_t* tiles;
   const int32_t* col_idx;
   const float* x;
   float* out;      // (n_tile_rows * 4, f)
   float* scratch;  // (ceil(n_groups / kChunk), 2, 4, f)
-  int32_t* row_done;  // (n_tile_rows, n_fb) zeros
   long long n_x_rows;
-  int n_tile_rows;
-  int n_chunk_blocks;  // ceil(ceil(n_groups / kChunk) / kBlockWarps)
-  int tb_rows;         // tile-rows of a row CTA
-  int fw;              // feature block (blockIdx.y)
+  int fw;          // feature block (blockIdx.y)
   int f;
-  int heavy;
 };
 
-// Registers a thread, static shared bytes and resident blocks per SM (at
-// kBlockWarps warps a block) of an fp kernel: out[0..2].
-template <class Kernel>
-cudaError_t fp_attributes(Kernel* kernel, int* out) {
-  cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
-  if (e != cudaSuccess) return e;
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.sharedSizeBytes;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel,
-                                                       kBlockWarps * 32, 0);
-}
-
 template <int kSub, int kCols, bool kVec>
-__device__ __forceinline__ void fp_rows(const FpGrid& a, const float* x, int g0,
-                                        int g1, int f0, int f1, float* dst,
-                                        int lane, int2* hits) {
+__device__ __forceinline__ void fp_rows(const FpGrid& a, int g0, int g1,
+                                        int f0, int f1, float* dst, int lane,
+                                        int2* hits) {
   using L = FpLanes<kSub, kCols, kVec>;
   for (int c0 = f0; c0 < f1; c0 += L::kPass) {
     float acc[kTile][kCols] = {};
-    fp<kSub, kCols, kVec>(a.tiles, a.col_idx, x, g0, g1, c0, f1, a.f,
+    fp<kSub, kCols, kVec>(a.tiles, a.col_idx, a.x, g0, g1, c0, f1, a.f,
                           a.n_x_rows, lane, hits, acc);
     fold<kSub, kCols>(acc);
     store<kSub, kCols, kVec>(dst, a.f, c0, f1, lane, acc);
@@ -352,46 +513,24 @@ __device__ __forceinline__ void fp_rows(const FpGrid& a, const float* x, int g0,
 }
 
 template <int kSub, int kCols, bool kVec>
-__device__ __forceinline__ void fp_block(const FpGrid& a) {
-  __shared__ int2 hits[kBlockWarps][kHitsPerLoad];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int f0 = blockIdx.y * a.fw, f1 = min(f0 + a.fw, a.f);
-  const float* __restrict__ x = a.x;
-  if ((int)blockIdx.x >= a.n_chunk_blocks) {
-    const int tr0 = ((int)blockIdx.x - a.n_chunk_blocks) * a.tb_rows;
-    const int tr1 = min(tr0 + a.tb_rows, a.n_tile_rows);
-    for (int tr = tr0 + warp; tr < tr1; tr += kBlockWarps) {
-      const int g0 = a.grp_ptr[tr], g1 = a.grp_ptr[tr + 1];
-      if (g1 - g0 > a.heavy) continue;
-      fp_rows<kSub, kCols, kVec>(a, x, g0, g1, f0, f1,
-                                 a.out + (size_t)tr * kTile * a.f, lane,
-                                 hits[warp]);
-    }
-    return;
+struct FpOp {
+  const FpGrid& a;
+  int lane, f0, f1;
+  int2* hits;
+  __device__ void row(int tr, int g0, int g1) {
+    fp_rows<kSub, kCols, kVec>(a, g0, g1, f0, f1,
+                               a.out + (size_t)tr * kTile * a.f, lane, hits);
   }
-  const int k = (int)blockIdx.x * kBlockWarps + warp;
-  const long long lo = (long long)k * kChunk;
-  const int g_end = a.grp_ptr[a.n_tile_rows];
-  if (lo >= g_end) return;
-  const int hi = (int)min(lo + kChunk, (long long)g_end);
-  const int first = a.group_row[lo], last = a.group_row[hi - 1];
-#pragma unroll
-  for (int slot = 0; slot < 2; ++slot) {
-    const int r = slot ? last : first;
-    if (slot && r == first) break;
-    const int gr0 = a.grp_ptr[r], gr1 = a.grp_ptr[r + 1];
-    if (gr1 - gr0 <= a.heavy) continue;
-    fp_rows<kSub, kCols, kVec>(
-        a, x, max((int)lo, gr0), min(hi, gr1), f0, f1,
-        a.scratch + ((size_t)k * 2 + slot) * kTile * a.f, lane, hits[warp]);
-    const int k0 = gr0 / kChunk, k1 = (gr1 - 1) / kChunk;
-    if (!last_arrival(a.row_done + (size_t)r * gridDim.y + blockIdx.y,
-                      k1 - k0 + 1, lane))
-      continue;
+  __device__ void part(int item, int g0, int g1) {
+    fp_rows<kSub, kCols, kVec>(a, g0, g1, f0, f1,
+                               a.scratch + (size_t)item * kTile * a.f, lane,
+                               hits);
+  }
+  __device__ void combine(int r, int k0, int k1, int s0) {
     for (int col = f0 + lane; col < f1; col += 32) {
       float acc[kTile] = {0.f, 0.f, 0.f, 0.f};
       for (int kc = k0; kc <= k1; ++kc) {
-        const int s = (kc == k0 && gr0 != kc * kChunk) ? 1 : 0;
+        const int s = kc == k0 ? s0 : 0;
         const float* p = a.scratch + ((size_t)kc * 2 + s) * kTile * a.f + col;
 #pragma unroll
         for (int i = 0; i < kTile; ++i) acc[i] += __ldcg(p + (size_t)i * a.f);
@@ -401,11 +540,131 @@ __device__ __forceinline__ void fp_block(const FpGrid& a) {
         a.out[((size_t)r * kTile + i) * a.f + col] = acc[i];
     }
   }
+};
+
+template <int kSub, int kCols, bool kVec>
+__device__ __forceinline__ void fp_block(const FpGrid& a) {
+  __shared__ int2 hits[kBlockWarps][kHitsPerLoad];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int f0 = blockIdx.y * a.fw;
+  FpOp<kSub, kCols, kVec> op{a, lane, f0, min(f0 + a.fw, a.f), hits[warp]};
+  split_block(a.s, op, lane, warp);
 }
 
-// Sign word of four row accumulators, bits past `keep` cleared.
-__device__ __forceinline__ uint32_t sign_word(int v, uint32_t keep) {
-  return __ballot_sync(kFull, v >= 0) & keep;
+// ---- bits ----------------------------------------------------------------
+struct BitsGrid {
+  Split s;
+  const int32_t* tiles;
+  const int32_t* col_idx;
+  const uint32_t* x;
+  int32_t* out;      // (n_tile_rows * 4, wf) sign words or (.., wf * 32) counts
+  int32_t* scratch;  // (ceil(n_groups / kChunk), 2, 4, wf * 32)
+  long long n_x_rows;
+  int wf;            // words of a row of x
+  int fbw;           // words of a feature block (blockIdx.y)
+  int n_feat;
+  int binarize;
+  int vec;           // kW-word loads: x's base and wf, fbw aligned to them
+};
+
+__device__ __forceinline__ uint32_t tail_keep(int w, int n_feat) {
+  return (n_feat % 32 && w == n_feat / 32) ? (1u << (n_feat % 32)) - 1u
+                                           : kFull;
+}
+
+// Stores words [w, w + nw) of four rows from row0: int32 counts, or sign
+// words (sign(0) = +1) with the bits past n_feat cleared.
+template <int kW>
+__device__ __forceinline__ void store_bits(const BitsGrid& a, size_t row0,
+                                           int w, int nw, int lane,
+                                           const int acc[kTile][kW]) {
+  const size_t width = (size_t)a.wf * 32;
+#pragma unroll
+  for (int j = 0; j < kW; ++j) {
+    if (j >= nw) break;
+    if (a.binarize) {
+      const uint32_t keep = tail_keep(w + j, a.n_feat);
+#pragma unroll
+      for (int i = 0; i < kTile; ++i) {
+        const uint32_t word = sign_word(acc[i][j], keep);
+        if (lane == i) a.out[(row0 + i) * a.wf + w + j] = (int32_t)word;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kTile; ++i)
+        a.out[(row0 + i) * width + (size_t)(w + j) * 32 + lane] = acc[i][j];
+    }
+  }
+}
+
+template <int kW, bool kS2>
+struct BitsOp {
+  const BitsGrid& a;
+  int lane, w0, w1;
+  __device__ void row(int tr, int g0, int g1) {
+    for (int w = w0; w < w1; w += kW) {
+      const int nw = min(kW, w1 - w);
+      int acc[kTile][kW] = {};
+      bits<kW, kS2>(a.tiles, a.col_idx, a.x, g0, g1, w, nw, a.wf,
+                    a.vec && nw == kW, a.n_x_rows, lane, acc);
+      store_bits<kW>(a, (size_t)tr * kTile, w, nw, lane, acc);
+    }
+  }
+  __device__ void part(int item, int g0, int g1) {
+    const size_t width = (size_t)a.wf * 32;
+    int32_t* dst = a.scratch + (size_t)item * kTile * width;
+    for (int w = w0; w < w1; w += kW) {
+      const int nw = min(kW, w1 - w);
+      int acc[kTile][kW] = {};
+      bits<kW, kS2>(a.tiles, a.col_idx, a.x, g0, g1, w, nw, a.wf,
+                    a.vec && nw == kW, a.n_x_rows, lane, acc);
+#pragma unroll
+      for (int j = 0; j < kW; ++j) {
+        if (j >= nw) break;
+#pragma unroll
+        for (int i = 0; i < kTile; ++i)
+          dst[i * width + (size_t)(w + j) * 32 + lane] = acc[i][j];
+      }
+    }
+  }
+  __device__ void combine(int r, int k0, int k1, int s0) {
+    const size_t width = (size_t)a.wf * 32;
+    for (int w = w0; w < w1; ++w) {
+      int acc[kTile][1] = {};
+      for (int kc = k0; kc <= k1; ++kc) {
+        const int s = kc == k0 ? s0 : 0;
+        const int32_t* p = a.scratch + ((size_t)kc * 2 + s) * kTile * width +
+                           (size_t)w * 32 + lane;
+#pragma unroll
+        for (int i = 0; i < kTile; ++i) acc[i][0] += __ldcg(p + i * width);
+      }
+      store_bits<1>(a, (size_t)r * kTile, w, 1, lane, acc);
+    }
+  }
+};
+
+template <int kW, bool kS2>
+__device__ __forceinline__ void bits_block(const BitsGrid& a) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int w0 = blockIdx.y * a.fbw;
+  BitsOp<kW, kS2> op{a, lane, w0, min(w0 + a.fbw, a.wf)};
+  split_block(a.s, op, lane, warp);
+}
+
+// Before a bits launch: the grid (chunk CTAs, then a CTA per tb_rows
+// tile-rows; a y block per fbw words), `vec`, and the tickets zeroed.
+inline cudaError_t bits_setup(BitsGrid* a, long long n_groups, dim3* grid,
+                              cudaStream_t stream) {
+  const int kw = bits_pass(a->fbw);
+  const int n_fb = (a->wf + a->fbw - 1) / a->fbw;
+  a->s.n_chunk_blocks = chunk_blocks(n_groups);
+  a->vec = kw > 1 && a->wf % kw == 0 && a->fbw % kw == 0 &&
+           (uintptr_t)a->x % (4 * kw) == 0;
+  *grid = dim3((unsigned)(a->s.n_chunk_blocks +
+                          (a->s.n_tile_rows + a->s.tb_rows - 1) / a->s.tb_rows),
+               (unsigned)n_fb);
+  return cudaMemsetAsync(a->s.row_done, 0,
+                         sizeof(int32_t) * a->s.n_tile_rows * n_fb, stream);
 }
 
 }  // namespace walk

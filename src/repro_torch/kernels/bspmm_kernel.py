@@ -6,25 +6,25 @@ Replaces the Pallas TPU kernels ``repro/kernels/bspmm_kernel.py:bspmm_bits``
 (``_bspmm_bits_grid``, ``_bspmm_fp_grid``) with ``csrc/bspmm_grid.cu``; see
 "2D block grid" below. The TPU kernels walk the flattened group
 list on a sequential grid and keep the accumulator in VMEM across steps.
-The CUDA kernels split a tile-row of many groups into work items of at most
-``GROUPS_PER_ITEM`` consecutive groups, so a power-law hub row (1,399 groups
-on Flickr, mean 5) is spread over many warps; the partial sums of a row of
-several items are added in item order by the warp that finishes the row
-last, so results do not depend on scheduling.
+The CUDA kernels share one work split (``csrc/walk.cuh``
+``split_block``): a warp walks a light tile-row whole, and a heavy one
+(more than ``GROUPS_PER_ITEM`` groups in 1D) is cut into chunk items in
+group space, which each warp finds from ``group_row`` and ``grp_ptr`` (see
+:func:`heavy_items`), so a power-law hub row (1,399 groups on Flickr, mean
+5) is spread over the whole launch and nothing is built before it; the
+partial sums of a heavy row are added in chunk order by the warp that
+finishes the row last, so results do not depend on scheduling.
 
-* ``bspmm_bits``: a warp per work item (``item_ptr``, built on the device).
-  Steps ②-⑤ of the paper's warp algorithm — lane k gathers neighbour word
-  k, the eight 4x4 tiles are OR-reduced into four adjacency words, 32
-  ``__ballot_sync`` calls transpose the 32x32 bit block (LSB-first, so no
-  ``__brev``), and each lane accumulates the trinary popc (s3 or s2) of one
-  feature for the four rows. Binarize mode stores sign words with the tail
-  past ``n_feat`` masked.
-* ``bspmm_fp``: a warp per light tile-row; a heavy one (more than
-  ``GROUPS_PER_ITEM`` groups) is cut into chunk items in group space, which
-  each warp finds from ``group_row`` and ``grp_ptr`` (see
-  :func:`heavy_items`). The walk is edge-driven (``csrc/walk.cuh``): per
-  group a ballot finds the hit neighbour columns and the warp gathers only
-  those, in a lane layout chosen by :func:`fp_layout`.
+* ``bspmm_bits``: Steps ②-⑤ of the paper's warp algorithm, for up to 4
+  feature words a pass — lane k gathers neighbour k's words in one load,
+  the eight 4x4 tiles are OR-reduced into four adjacency words once a group,
+  each word's 32x32 bit block is transposed in registers by five
+  ``__shfl_xor_sync`` rounds (LSB-first, so no ``__brev``), and each lane
+  accumulates the trinary popc (s3 or s2) of one feature for the four rows.
+  Binarize mode stores sign words with the tail past ``n_feat`` masked.
+* ``bspmm_fp``: the edge-driven fp walk: per group a ballot finds the hit
+  neighbour columns and the warp gathers only those, in a lane layout
+  chosen by :func:`fp_layout`.
 
 Both are bound by bytes on the H100 (gathered activation rows, group
 arrays, output). Empty tile-rows store 0 (binarized: sign(0) = +1 bits with
@@ -50,8 +50,9 @@ LAUNCHES = {"bspmm_bits": 0, "bspmm_fp": 0, "bspmm_bits_grid": 0,
 # groups per chunk of the plain versions: bounds their gathered temporaries
 _CHUNK_ELEMS = 1 << 24
 TRINARY_MODES = ("s2_and_andnot", "s3_two_popc")
-GROUPS_PER_ITEM = 16   # groups of one tile-row per CUDA warp (walk.cuh kChunk)
-HEAVY_GRID = 32        # csrc/bspmm_grid.cu kHeavy: groups a grid warp walks whole
+GROUPS_PER_ITEM = 16   # groups of one tile-row per CUDA warp (walk.cuh kChunk);
+                       # also the bits grid's kBitsHeavy
+HEAVY_GRID = 32        # csrc/bspmm_grid.cu kHeavy: groups an fp grid warp walks whole
 
 
 def _gather_rows(x: torch.Tensor, adj: FRDCMatrix) -> torch.Tensor:
@@ -141,7 +142,7 @@ def _check_adj(adj: FRDCMatrix, x: torch.Tensor, what: str) -> None:
 
 
 def work_items(grp_ptr: torch.Tensor) -> torch.Tensor:
-    """item_ptr (R+1,) int32 of the 1D bits kernel and the fused layer:
+    """item_ptr (R+1,) int32 of the fused layer's aggregation:
     tile-row r owns work items item_ptr[r] .. item_ptr[r+1], max(1,
     ceil(groups / GROUPS_PER_ITEM)) of them."""
     per = grp_ptr[1:] - grp_ptr[:-1]
@@ -153,15 +154,8 @@ def work_items(grp_ptr: torch.Tensor) -> torch.Tensor:
 
 def max_items(adj: FRDCMatrix) -> int:
     """Upper bound of item_ptr[-1] from the shapes alone (no device sync):
-    sizes the grid and the partial-sum scratch."""
+    sizes the fused layer's partial-sum scratch."""
     return adj.n_tile_rows + -(-adj.n_groups // GROUPS_PER_ITEM)
-
-
-def _work_items(adj: FRDCMatrix):
-    """(item_ptr, max_items, row_done) for the 1D bits kernel."""
-    row_done = torch.zeros(adj.n_tile_rows, dtype=torch.int32,
-                           device=adj.device)
-    return work_items(adj.grp_ptr), max_items(adj), row_done
 
 
 class FpLayout(NamedTuple):
@@ -193,8 +187,8 @@ def fp_layout(width: int, f: int, base_ptr: int) -> FpLayout:
 
 def heavy_items(grp_ptr: torch.Tensor, group_row: torch.Tensor,
                 heavy: int) -> list:
-    """The fp kernels' work items of heavy tile-rows (more than ``heavy``
-    groups), as ``(chunk, slot, row, g0, g1)`` in chunk order.
+    """The 1D and grid kernels' work items of heavy tile-rows (more than
+    ``heavy`` groups), as ``(chunk, slot, row, g0, g1)`` in chunk order.
 
     The kernels build nothing for them: warp k takes chunk k, the groups
     [k * GROUPS_PER_ITEM, (k + 1) * GROUPS_PER_ITEM) below ``grp_ptr[-1]``,
@@ -216,44 +210,60 @@ def heavy_items(grp_ptr: torch.Tensor, group_row: torch.Tensor,
     return items
 
 
+def _work(adj: FRDCMatrix, width: int, n_fb: int, dtype: torch.dtype,
+          device):
+    """Scratch of the chunk items: two slots of (4, width) partial sums per
+    ``GROUPS_PER_ITEM`` chunk, then one int32 ticket per tile-row and
+    feature block at address ``tickets`` (zeroed by the launcher); one
+    allocation, as the wrapper's host time is most of a call at serving
+    widths. Returns (work, tickets)."""
+    part = -(-adj.n_groups // GROUPS_PER_ITEM) * 2 * TILE * width
+    work = torch.empty(part + adj.n_tile_rows * n_fb, dtype=dtype,
+                       device=device)
+    return work, work.data_ptr() + 4 * part
+
+
+def _bits_args(adj: FRDCMatrix, x_packed: torch.Tensor, binarize: bool,
+               trinary_mode: str, what: str):
+    """Checks and output of the bits kernels: (x, out)."""
+    if not x_packed.is_cuda or x_packed.dtype != torch.int32 \
+            or x_packed.ndim != 2:
+        raise ValueError(f"{what} takes 2-D CUDA int32 bit-view words, got "
+                         f"{x_packed.dtype} on {x_packed.device}")
+    if trinary_mode not in TRINARY_MODES:
+        raise ValueError(trinary_mode)
+    _check_adj(adj, x_packed, what)
+    x = x_packed.contiguous()
+    wf = x.shape[1]
+    out = torch.empty((adj.n_tile_rows * TILE, wf if binarize else wf * WORD),
+                      dtype=torch.int32, device=x.device)
+    return x, out
+
+
 def bspmm_bits_cuda(adj: FRDCMatrix, x_packed: torch.Tensor, n_feat: int,
                     binarize: bool = True,
                     trinary_mode: str = "s3_two_popc") -> torch.Tensor:
     """Launch Algorithm 1 on CUDA: (R4, Wf*32) int32 counts or (R4, Wf)
     sign words."""
-    if not x_packed.is_cuda or x_packed.dtype != torch.int32 \
-            or x_packed.ndim != 2:
-        raise ValueError("bspmm_bits_cuda takes 2-D CUDA int32 bit-view words, "
-                         f"got {x_packed.dtype} on {x_packed.device}")
-    if trinary_mode not in TRINARY_MODES:
-        raise ValueError(trinary_mode)
-    _check_adj(adj, x_packed, "bspmm_bits_cuda")
-    x = x_packed.contiguous()
+    x, out = _bits_args(adj, x_packed, binarize, trinary_mode,
+                        "bspmm_bits_cuda")
     n, wf = x.shape
-    r4 = adj.n_tile_rows * TILE
-    out = torch.empty((r4, wf if binarize else wf * WORD), dtype=torch.int32,
-                      device=x.device)
-    item_ptr, max_items, row_done = _work_items(adj)
-    scratch = torch.empty(max_items * TILE * wf * WORD, dtype=torch.int32,
-                          device=x.device)
+    work, tickets = _work(adj, wf * WORD, 1, torch.int32, x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     build.check(build.library("bspmm").bspmm_bits(
-        item_ptr.data_ptr(), adj.grp_ptr.data_ptr(), adj.tiles.data_ptr(),
-        adj.col_idx.data_ptr(), x.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), row_done.data_ptr(), adj.n_tile_rows, max_items,
-        GROUPS_PER_ITEM, n, wf, int(n_feat), int(binarize),
-        int(trinary_mode == "s2_and_andnot"), stream), "bspmm_bits")
+        adj.grp_ptr.data_ptr(), adj.group_row.data_ptr(), adj.tiles.data_ptr(),
+        adj.col_idx.data_ptr(), x.data_ptr(), out.data_ptr(), work.data_ptr(),
+        tickets, adj.n_tile_rows, adj.n_groups, n, wf, int(n_feat),
+        int(binarize), int(trinary_mode == "s2_and_andnot"), stream),
+        "bspmm_bits")
     LAUNCHES["bspmm_bits"] += 1
     return out
 
 
 def _fp_launch_args(adj: FRDCMatrix, x: torch.Tensor, what: str,
                     plan: Optional[BlockPlan] = None):
-    """Checks and buffers shared by the fp kernels: (x, out, work, tickets).
-    ``work`` holds the heavy chunk items' partial sums and, past them, one
-    int32 ticket per tile-row and feature block of ``plan`` at address
-    ``tickets`` (zeroed by the launcher); one allocation, as the wrapper's
-    host time is most of a call at serving widths."""
+    """Checks and buffers of the fp kernels: (x, out, work, tickets), the
+    work buffer of :func:`_work` for the feature blocks of ``plan``."""
     if not x.is_cuda or x.dtype != torch.float32 or x.ndim != 2:
         raise ValueError(f"{what} takes a 2-D CUDA float32 tensor, got "
                          f"{x.dtype} on {x.device}")
@@ -263,10 +273,7 @@ def _fp_launch_args(adj: FRDCMatrix, x: torch.Tensor, what: str,
     n_fb = 1 if plan is None else _grid_geometry(adj, plan, f)[3]
     out = torch.empty((adj.n_tile_rows * TILE, f), dtype=torch.float32,
                       device=x.device)
-    part = -(-adj.n_groups // GROUPS_PER_ITEM) * 2 * TILE * f
-    work = torch.empty(part + adj.n_tile_rows * n_fb, dtype=torch.float32,
-                       device=x.device)
-    return x, out, work, work.data_ptr() + 4 * part
+    return (x, out, *_work(adj, f, n_fb, torch.float32, x.device))
 
 
 def bspmm_fp_cuda(adj: FRDCMatrix, x: torch.Tensor) -> torch.Tensor:
@@ -291,11 +298,10 @@ def bspmm_fp_cuda(adj: FRDCMatrix, x: torch.Tensor) -> torch.Tensor:
 # One CUDA block owns ``rows`` output rows x one feature block, as one grid
 # step of the TPU kernel does, and walks its tile-rows' ``grp_ptr`` ranges
 # (``pad_frdc`` groups past ``grp_ptr[-1]`` are never visited). Warps take
-# light tile-rows whole. A tile-row of more than ``HEAVY_GRID`` groups is
-# split, in the bits grid over the block's 8 warps (partial sums added in
-# warp order in shared memory), in the fp grid into the chunk items of
-# :func:`heavy_items`, spread over the whole launch; both are deterministic
-# (``csrc/bspmm_grid.cu``).
+# light tile-rows whole. A tile-row of more groups (``GROUPS_PER_ITEM`` in
+# the bits grid, ``HEAVY_GRID`` in the fp grid) leaves its block: it is cut into the chunk items of :func:`heavy_items`,
+# spread over the whole launch and added in chunk order, as in the 1D
+# kernels; the results are deterministic (``csrc/bspmm_grid.cu``).
 
 class BlockPlan(NamedTuple):
     """Resolved (rows, feats) block tunable for the 2D grid.
@@ -422,24 +428,18 @@ def bspmm_bits_grid_cuda(adj: FRDCMatrix, x_packed: torch.Tensor,
                          ) -> torch.Tensor:
     """Launch the 2D grid over packed ±1 activations: (R4, Wf*32) int32
     counts or (R4, Wf) sign words."""
-    if not x_packed.is_cuda or x_packed.dtype != torch.int32 \
-            or x_packed.ndim != 2:
-        raise ValueError("bspmm_bits_grid_cuda takes 2-D CUDA int32 bit-view "
-                         f"words, got {x_packed.dtype} on {x_packed.device}")
-    if trinary_mode not in TRINARY_MODES:
-        raise ValueError(trinary_mode)
-    _check_adj(adj, x_packed, "bspmm_bits_grid_cuda")
-    x = x_packed.contiguous()
+    x, out = _bits_args(adj, x_packed, binarize, trinary_mode,
+                        "bspmm_bits_grid_cuda")
     n, wf = x.shape
-    tb_rows, n_rb, fbw, n_fb = _grid_geometry(adj, _bits_word_plan(plan), wf)
-    out = torch.empty((adj.n_tile_rows * TILE, wf if binarize else wf * WORD),
-                      dtype=torch.int32, device=x.device)
+    tb_rows, _, fbw, n_fb = _grid_geometry(adj, _bits_word_plan(plan), wf)
+    work, tickets = _work(adj, wf * WORD, n_fb, torch.int32, x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     build.check(build.library("bspmm_grid").bspmm_bits_grid(
-        adj.grp_ptr.data_ptr(), adj.tiles.data_ptr(), adj.col_idx.data_ptr(),
-        x.data_ptr(), out.data_ptr(), adj.n_tile_rows, tb_rows, n_rb, fbw,
-        n_fb, n, wf, int(n_feat), int(binarize),
-        int(trinary_mode == "s2_and_andnot"), stream), "bspmm_bits_grid")
+        adj.grp_ptr.data_ptr(), adj.group_row.data_ptr(), adj.tiles.data_ptr(),
+        adj.col_idx.data_ptr(), x.data_ptr(), out.data_ptr(), work.data_ptr(),
+        tickets, adj.n_tile_rows, adj.n_groups, tb_rows, fbw, n, wf,
+        int(n_feat), int(binarize), int(trinary_mode == "s2_and_andnot"),
+        stream), "bspmm_bits_grid")
     LAUNCHES["bspmm_bits_grid"] += 1
     return out
 

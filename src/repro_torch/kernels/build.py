@@ -36,12 +36,14 @@ SIGNATURES = {
     "bmm": {"bmm_xnor": (_P, _P, _P, _L, _I, _I, _I, _I, _P),
             "bmm_xnor_attrs": (_I, _I, _P)},
     "bspmm": {"bspmm_bits": (_P, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _L, _I, _I, _I, _I, _I, _I, _P),
+                             _I, _L, _L, _I, _I, _I, _I, _P),
+              "bspmm_bits_attrs": (_I, _I, _P),
               "bspmm_fp": (_P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _L, _L, _I, _I, _I, _I, _P),
               "bspmm_fp_attrs": (_I, _I, _I, _P)},
-    "bspmm_grid": {"bspmm_bits_grid": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                       _I, _L, _I, _I, _I, _I, _P),
+    "bspmm_grid": {"bspmm_bits_grid": (_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                       _L, _I, _I, _L, _I, _I, _I, _I, _P),
+                   "bspmm_bits_grid_attrs": (_I, _I, _P),
                    "bspmm_fp_grid": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L,
                                      _I, _I, _I, _I, _L, _I, _I, _I, _I, _P),
                    "bspmm_fp_grid_attrs": (_I, _I, _I, _P)},

@@ -93,8 +93,9 @@ def test_build_paths_and_missing_nvcc(monkeypatch):
 
 @pytest.mark.parametrize("hub_groups", [0, 1, 16, 17, 40])
 def test_cuda_work_items_cover_every_group_once(hub_groups):
-    """The CUDA BSpMM schedule: every tile-row owns at least one work item,
-    its items cover its groups exactly, and the launch bound holds."""
+    """The fused layer's aggregation schedule: every tile-row owns at least
+    one work item, its items cover its groups exactly, and the scratch bound
+    holds."""
     rng = np.random.default_rng(hub_groups)
     n = max(64, hub_groups * 32 + 8)
     a = _graph(rng, n, 0.01)
@@ -102,11 +103,11 @@ def test_cuda_work_items_cover_every_group_once(hub_groups):
     a[1, : hub_groups * 32] = 1.0     # tile-row 0 gets `hub_groups` groups
     adj = tf.pad_frdc(tf.from_dense(a, device="cpu"), n + 8,
                       n_groups=tf.from_dense(a, device="cpu").n_groups + 3)
-    item_ptr, max_items, row_done = tsk._work_items(adj)
+    item_ptr, max_items = tsk.work_items(adj.grp_ptr), tsk.max_items(adj)
     per = np.diff(adj.grp_ptr.numpy())
     items = np.diff(item_ptr.numpy())
     c = tsk.GROUPS_PER_ITEM
     np.testing.assert_array_equal(items, np.maximum(1, -(-per // c)))
     assert item_ptr[0] == 0 and int(item_ptr[-1]) <= max_items
     assert all(k * c < max(p, 1) for p, k in zip(per, items - 1))
-    assert row_done.shape == (adj.n_tile_rows,) and not row_done.any()
+    assert item_ptr.dtype == torch.int32 and item_ptr.shape == (adj.n_tile_rows + 1,)
