@@ -62,7 +62,29 @@ result):
    ``torch.matmul`` for the BBF kinds, and its bound), their registers,
    shared memory and occupancy, per-batch
    ``serve_subgraph`` p50 / p90 and its extract / launch + finish split,
-   and the full-graph forward behind ``full_logits``.
+   and the full-graph forward behind ``full_logits``;
+8. sharded path — full Flickr at hidden 64 cut into P = 4 shards on the
+   one card (``ShardPlanner``), served by ``ShardedGraphSession`` with the
+   host layer executor: the distributed full pass of GCN "bin" unfused
+   (the 1D kernels) and fused, and of GCN "full", SAGE and SAINT fused
+   (each layer one fused launch with the intra+halo pair); routed
+   ``serve_subgraph`` of 4 batches of 32 seeded seeds on the GCN "bin"
+   session (from ``GraphStore.sharded_session``). Every kernel of the path
+   and each sharded form of the fused layer must have launched;
+9. sharded checks — each pass against the card's single-host full-graph
+   forward under the same frozen BN (the rule of phase 3); GCN "bin"
+   fused against unfused, and its layer-1 words: equal except on rows
+   that aggregate a neighbour whose transform bit differs between cuBLAS
+   and the fused kernel's fmaf chain, where that bit's fp64 value must lie
+   within 1e-5 of its sum of |terms| from zero; every owner group of the
+   routed batches bit-exact against the single-host card session of way
+   (a), no program added after warmup; an artifact round trip through
+   ``save`` / ``load``, bit-exact;
+10. sharded times — each pass's host ms, halo bytes and launches a pass,
+   the routed batch's p50 / p90 and extract split, and each sharded form
+   of the fused layer (rows 7e-7h) at shard 0's padded shapes against its
+   plain version (sign words bit-exact, fp within FP_TOL of the sum of
+   |terms|), with its bound, on events and device time.
 
 Output: a JSON line with one record per kernel, the card's name and power
 limit from nvidia-smi, and last the line
@@ -103,12 +125,27 @@ REPLACES = {
     "fused_layer": ("src/repro_torch/csrc/fused_layer.cu",
                     "src/repro/kernels/fused_layer.py:163"),
 }
+# the fused layer's sharded forms (rows 7e-7h): each kind with its halo
+# pair, and fc with BN by the reciprocal
+PAIR_KINDS = ("gcn_bin_l1+halo", "gcn_bbf_fbf+halo", "branch_add+halo",
+              "fc+rcp")
+REPLACES.update({f"fused_layer/{k}": REPLACES["fused_layer"]
+                 for k in PAIR_KINDS})
 FORWARD_KERNELS = ("binarize_pack", "bmm_xnor", "bspmm_bits", "bspmm_fp")
 SERVE_KERNELS = ("bspmm_bits_grid", "bspmm_fp_grid", "fused_layer")
 GRID_BLOCK = (32, 32)      # the (b) plan's bspmm_block
 SERVE_BATCH = 32           # seeds per serve_subgraph call (max_batch)
 SERVE_BATCHES = 8          # batches per GCN way; SAGE and SAINT take 2
 WARMUP_PROBES = 16
+SHARDS = 4                 # the sharded phase's P, all on the one card
+ROUTED_BATCHES = 4         # routed serve batches of SERVE_BATCH seeds
+ROUTED_PROBES = 2          # warmup probes of the sharded session
+# the distributed passes: name -> (family, scheme, fused)
+SHARDED_WAYS = {"gcn_bin/unfused": ("gcn", "bin", False),
+                "gcn_bin/fused": ("gcn", "bin", True),
+                "gcn_full/fused": ("gcn", "full", True),
+                "sage/fused": ("sage", "fixed", True),
+                "saint/fused": ("saint", "fixed", True)}
 
 
 def log(msg: str) -> None:
@@ -555,7 +592,9 @@ def run(torch) -> dict:
         for w in (1, 2, 4) for s2 in (0, 1)}))
     log("forward ms: " + json.dumps(forward_ms))
     log(f"phases 1-4: {time.perf_counter() - t_start:.1f} s")
-    records += run_serve(torch, flickr)
+    serve_records, single, params = run_serve(torch, flickr)
+    records += serve_records
+    records += run_sharded(torch, flickr, single, params)
     return {"kernels": records}
 
 
@@ -677,6 +716,8 @@ NO_LIBRARY = {
     "fused_layer": "no single PyTorch call computes a whole layer "
                    "(BN, binary transform, aggregation)",
 }
+NO_LIBRARY.update({f"fused_layer/{k}": NO_LIBRARY["fused_layer"]
+                   for k in PAIR_KINDS})
 
 
 def kernel_record(name, shape, launches, max_err, ms, plain_ms, lib_ms,
@@ -693,10 +734,12 @@ def kernel_record(name, shape, launches, max_err, ms, plain_ms, lib_ms,
             "bound_by": b_by, "library_ms": lib_ms}
 
 
-def run_serve(torch, flickr) -> list:
+def run_serve(torch, flickr) -> tuple:
     """Phases 5-7: the serving slice on full Flickr. Returns the kernel
-    records of the 2D-grid and fused kernels."""
+    records of the 2D-grid and fused kernels, the single-host GCN "bin"
+    session of way (a) and the models' parameters."""
     import tempfile
+    from functools import partial
 
     import numpy as np
     from repro_torch.core import bitops, frdc
@@ -1105,6 +1148,396 @@ def run_serve(torch, flickr) -> list:
         + json.dumps(serve_split))
     log("full-graph forward ms (full_logits refresh): " + json.dumps(full_ms))
     log(f"phases 5-7: {time.perf_counter() - t_start:.1f} s")
+    return records, sess_a, params
+
+
+def sharded_plan(session_core, family, scheme, fused):
+    variants = (session_core.GCN_SCHEME_VARIANTS[scheme] if family == "gcn"
+                else session_core.FIXED_VARIANTS)
+    return session_core.SessionPlan(family, scheme, layer_variants=variants,
+                                    fused=fused)
+
+
+def layer1_words(torch, sess_u, sess_f, tol):
+    """GCN "bin" layer 1 of the distributed pass, unfused against fused:
+    the exchanged transform words of every shard (cuBLAS fp32 GEMM against
+    the fused kernel's fmaf chain) and the layer's output words. Output
+    words must be equal on every row that aggregates no neighbour whose
+    transform words differ, and a transform bit may differ only where its
+    fp64 value is within FP_TOL of its sum of |terms|. Returns the counts
+    of (differing transform bits, rows they reach, differing output
+    rows)."""
+    import numpy as np
+    from repro_torch.core import bitops
+    from repro_torch.graphs import sampling
+    from repro_torch.serve import session_core
+    ex_u, ex_f = sess_u.layer_executor, sess_f.layer_executor
+    step_u, step_f = sess_u.program[0], sess_f.program[0]
+    bn = tuple(t.to(ex_u.device) for t in sess_u.bn[0])
+    states = ex_u._pad_state(sess_u._x_blocks())
+    hb_u = torch.cat([ex_u._operand(step_u, st, bn)[:p.n_local]
+                      for st, p in zip(states, sess_u.parts)])
+    hb_f = torch.cat([ex_f._operand(step_f, st, bn)[:p.n_local]
+                      for st, p in zip(states, sess_f.parts)])
+    out_u = np.concatenate(ex_u.run_pass(sess_u.program[:1],
+                                         sess_u._x_blocks(), sess_u.bn)[0])
+    out_f = np.concatenate(ex_f.run_pass(sess_f.program[:1],
+                                         sess_f._x_blocks(), sess_f.bn)[0])
+    w = sess_u.qparams.w1
+    n_h = w.packed.shape[0]
+    diff = (bitops.unpack_bits(hb_u, n_h) != bitops.unpack_bits(hb_f, n_h))
+    nodes, feats = torch.nonzero(diff, as_tuple=True)
+    if nodes.numel():
+        x = torch.from_numpy(sess_u.graph.data.x).to(bn[0].device)
+        z = session_core.apply_bn(x[nodes], *bn).double()
+        w_eff = (bitops.unpack_pm1(w.packed, w.n) * w.scale).T.double()
+        v = (z * w_eff[:, feats].T).sum(1)
+        mag = (z.abs() * w_eff[:, feats].T.abs()).sum(1)
+        if bool((v.abs() > tol * mag).any()):
+            raise AssertionError("layer 1: a transform bit differs away from "
+                                 "zero between the unfused and fused passes")
+    diff_nodes = np.unique(nodes.cpu().numpy())
+    reached = np.zeros(out_u.shape[0], bool)
+    if diff_nodes.size:
+        receivers, _ = sampling.gather_neighbors(sess_u.graph.csr_rev,
+                                                 diff_nodes)
+        reached[receivers] = True
+    rows = (out_u != out_f).any(axis=1)
+    if bool((rows & ~reached).any()):
+        raise AssertionError("layer 1: output words differ on rows whose "
+                             "neighbours' transform words agree")
+    return int(diff.sum()), int(reached.sum()), int(rows.sum())
+
+
+def run_sharded(torch, flickr, single, params) -> list:
+    """Phases 8-10: sharded serving on full Flickr, SHARDS shards on the
+    one card, executor="host". Returns the records of the fused layer's
+    sharded forms (rows 7e-7h)."""
+    import tempfile
+    from functools import partial
+
+    import numpy as np
+    from repro_torch.core import bitops
+    from repro_torch.core.binarize import BinTensor
+    from repro_torch.kernels import fused_layer, ops
+    from repro_torch.serve import GraphStore, session_core
+    from repro_torch.serve.sharded import ShardedGraphSession, ShardPlanner
+
+    dev = DEVICE
+    rng = np.random.default_rng(SEED + 3)
+    t_start = time.perf_counter()
+    n_fl, f_fl = flickr.x.shape
+    n_cls = flickr.n_classes
+
+    def card(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    # -- 8. the sharded main path: plans, distributed passes, routed serve --
+    t0 = time.perf_counter()
+    plans = {fam: ShardPlanner(SHARDS).plan(flickr, fam)
+             for fam in ("gcn", "sage", "saint")}
+    log(f"shard plans ({SHARDS} shards): {time.perf_counter() - t0:.1f} s; "
+        + json.dumps({fam: dict(
+            pl.stats(), n_local_pad=pl.spmd_plan().n_local_pad,
+            n_halo_pad=pl.spmd_plan().n_halo_pad,
+            intra_groups=pl.spmd_plan().intra_groups,
+            halo_groups=pl.spmd_plan().halo_groups)
+            for fam, pl in plans.items()}))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    store = GraphStore(max_batch=SERVE_BATCH, khop=2, use_pallas=True,
+                       device=dev)
+    store.register_graph("flickr", flickr)
+    for fam in ("gcn", "sage", "saint"):
+        store.register_model(fam, fam, params[fam])
+    graph = store.graphs["flickr"]
+    sessions = {"gcn_bin/unfused": store.sharded_session("flickr", "gcn",
+                                                          SHARDS)}
+    for name, (fam, scheme, fused) in SHARDED_WAYS.items():
+        if name not in sessions:
+            sess = ShardedGraphSession(
+                graph, store.models[fam],
+                sharded_plan(session_core, fam, scheme, fused),
+                session_core.quantize_family(fam, params[fam]), plans[fam],
+                khop=2, max_batch=SERVE_BATCH, use_pallas=True, device=dev)
+            sess.sync()
+            sessions[name] = sess
+    passes = {name: np.concatenate(sess.run_distributed_pass())
+              for name, sess in sessions.items()}
+    # routed serve: the owner groups of 4 batches of 32 seeded seeds, every
+    # serve core (and the single-host one) at the node cap
+    routed = sessions["gcn_bin/unfused"]
+    for core in routed.cores + [single.core]:
+        core.preset_water(core.node_cap, {}, 1.0)
+    routed.warmup(np.random.default_rng(SEED), probes=ROUTED_PROBES)
+    programs = routed.compile_count_by_shard
+    seeds = rng.integers(0, n_fl, size=(ROUTED_BATCHES, SERVE_BATCH))
+    served, serve_times = [], []
+    for batch in seeds:
+        t1 = time.perf_counter()
+        served.append(routed.serve_subgraph(batch))
+        serve_times.append((time.perf_counter() - t1) * 1e3)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    log(f"sharded main path: {time.perf_counter() - t0:.1f} s; launches "
+        + json.dumps(launches))
+    need = list(FORWARD_KERNELS) + ["fused_layer"] \
+        + [f"fused_layer/{k}" for k in PAIR_KINDS]
+    missing = [k for k in need if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"sharded path: kernels never launched: "
+                             f"{missing}")
+
+    # -- 9. checks ----------------------------------------------------------
+    t0 = time.perf_counter()
+    x_dev = card(flickr.x)
+
+    def agree(what, got, want):
+        close = float(np.isclose(got, want, rtol=1e-3, atol=1e-3)
+                      .all(axis=1).mean())
+        same = float((got.argmax(1) == want.argmax(1)).mean())
+        log(f"agree {what}: rows close {close:.6f}, predictions {same:.6f}, "
+            f"max |dlogit| {float(np.abs(got - want).max()):.3e}")
+        if close < ROWS_CLOSE_MIN or same < PRED_AGREE_MIN:
+            raise AssertionError(f"{what}: answers disagree")
+
+    # each distributed pass against the card's single-host full-graph
+    # forward under the same frozen BN
+    for name, sess in sessions.items():
+        fam, scheme, _ = SHARDED_WAYS[name]
+        want = session_core.family_forward(
+            sharded_plan(session_core, fam, scheme, False), sess.qparams,
+            x_dev, sess._adj_full, use_pallas=True, bn_stats=sess.bn)
+        if passes[name].shape != tuple(want.shape) \
+                or not np.isfinite(passes[name]).all():
+            raise AssertionError(f"sharded {name}: logits "
+                                 f"{passes[name].shape} not finite of shape "
+                                 f"{tuple(want.shape)}")
+        agree(f"sharded {name} vs the single-host forward", passes[name],
+              want.cpu().numpy())
+    agree("sharded gcn_bin fused vs unfused", passes["gcn_bin/fused"],
+          passes["gcn_bin/unfused"])
+    bn_u, bn_f = sessions["gcn_bin/unfused"].bn, sessions["gcn_bin/fused"].bn
+    if not all(torch.equal(a, b) for sa, sb in zip(bn_u, bn_f)
+               for a, b in zip(sa, sb)):
+        raise AssertionError("sharded gcn_bin: calibrations differ")
+    flips, reached, rows = layer1_words(
+        torch, sessions["gcn_bin/unfused"], sessions["gcn_bin/fused"], FP_TOL)
+    log(f"sharded gcn_bin layer-1 words, unfused vs fused: {flips} "
+        f"transform bits differ (each within {FP_TOL} of its sum of |terms| "
+        f"from zero), reaching {reached} rows; {rows} output rows differ, "
+        f"all among those")
+    # routed serve: bit-exact against the single-host card session for the
+    # same per-owner micro-batches, no program added after warmup
+    if not all(torch.equal(a, b) for sa, sb in zip(routed.bn, single.bn)
+               for a, b in zip(sa, sb)):
+        raise AssertionError("routed serve: the sharded and single-host "
+                             "calibrations differ")
+    groups = 0
+    for batch, got in zip(seeds, served):
+        owners = routed.routing.owner(batch)
+        for o in np.unique(owners):
+            sel = owners == o
+            if not np.array_equal(got[sel], single.serve_subgraph(batch[sel])):
+                raise AssertionError(f"routed serve: owner {o}'s answers "
+                                     f"differ from the single-host session")
+            groups += 1
+    if routed.compile_count_by_shard != programs:
+        raise AssertionError(f"routed serve: programs {programs} -> "
+                             f"{routed.compile_count_by_shard} after warmup")
+    split = []
+    for batch in seeds[:2]:
+        t1 = time.perf_counter()
+        prep = routed.prepare_batch(batch)
+        t2 = time.perf_counter()
+        routed.finish_batch(prep, routed.launch_batch(prep))
+        split.append(((t2 - t1) * 1e3, (time.perf_counter() - t2) * 1e3))
+    split = tuple(float(np.median(v)) for v in zip(*split))
+    log(f"routed serve: {ROUTED_BATCHES} batches of {SERVE_BATCH} seeds, "
+        f"{groups} owner groups bit-exact against the single-host session; "
+        f"programs per shard {programs}, none added; per batch p50 "
+        f"{float(np.percentile(serve_times, 50)):.3f} ms, p90 "
+        f"{float(np.percentile(serve_times, 90)):.3f} ms; extract "
+        f"{split[0]:.3f} ms, launch + finish {split[1]:.3f} ms; halo bytes "
+        f"serve/x {routed.halo_stats.bytes_by_tag.get('serve/x', 0)}")
+    # artifact round trip
+    with tempfile.TemporaryDirectory() as tmp:
+        routed.save(Path(tmp) / "flickr__gcn__P4")
+        loaded = ShardedGraphSession.load(
+            Path(tmp) / "flickr__gcn__P4", graph, store.models["gcn"], khop=2,
+            max_batch=SERVE_BATCH, use_pallas=True, device=dev)
+        if loaded is None:
+            raise AssertionError("sharded artifact did not restore")
+        for core in loaded.cores:
+            core.preset_water(core.node_cap, {}, 1.0)
+        if not np.array_equal(loaded.serve_subgraph(seeds[0]), served[0]) \
+                or not np.array_equal(loaded.full_logits(),
+                                      routed.full_logits()):
+            raise AssertionError("restored sharded artifact answers differ")
+    log(f"sharded checks: {time.perf_counter() - t0:.1f} s")
+
+    # -- 10. times: passes, and the pair kernels at one shard's shapes ------
+    pass_ms, halo_bytes, pass_launches = {}, {}, {}
+    for name, sess in sessions.items():
+        pass_ms[name] = host_ms(torch, sess.run_distributed_pass, iters=3)
+        before = dict(sess.halo_stats.bytes_by_tag)
+        ops.reset_launch_counts()
+        sess.run_distributed_pass()
+        pass_launches[name] = {k: v for k, v in ops.launch_counts().items()
+                               if v}
+        halo_bytes[name] = {t: b - before.get(t, 0)
+                            for t, b in sess.halo_stats.bytes_by_tag.items()
+                            if b - before.get(t, 0)}
+    ex = routed.layer_executor
+    upload_ms = host_ms(torch, lambda: ex._pad_state(routed._x_blocks()),
+                        iters=3)
+    log("sharded distributed pass ms (host clock, median of 3): "
+        + json.dumps(pass_ms) + f"; of which the upload of the padded "
+        f"feature blocks (pageable host memory) {upload_ms:.3f} ms")
+    log("sharded halo bytes a pass, by tag: " + json.dumps(halo_bytes))
+    log("sharded launches a pass: " + json.dumps(pass_launches))
+
+    err = {f"fused_layer/{k}": 0.0 for k in PAIR_KINDS}
+
+    def ints(shape, lo=-3, hi=4):
+        return card(rng.integers(lo, hi, shape).astype(np.float32))
+
+    def weights(n_out, n_in):
+        return BinTensor(bitops.pack_bits(card(rng.integers(0, 2, (n_out,
+                                                                   n_in)))),
+                         card(rng.choice([0.25, 0.5, 1.0], (n_out, 1))
+                              .astype(np.float32)), n_in)
+
+    def bn_of(f):
+        return (ints((1, f), -1, 2), card(rng.choice([1.0, 2.0], (1, f))
+                                          .astype(np.float32)))
+
+    def shard0(name, kind):
+        ex = sessions[name].layer_executor
+        return ex._intra[kind][0], ex._halo[kind][0], ex._items[kind][0]
+
+    fl = fused_layer
+    # name: (shape, call, plain, sum of |terms| or None, sign bits or None,
+    # bound); the calls bind their inputs now (partial), as the names are
+    # rebound from one form to the next
+    specs = {}
+    # 7e: GCN "bin" layer 1, 500 -> 64 words over the 0/1 pair
+    a, h, it = shard0("gcn_bin/fused", "bin")
+    npd, nhp = a.n_rows, h.n_cols
+    wh = -(-HIDDEN // 32)
+    x, bn, w1 = ints((npd, f_fl)), bn_of(f_fl), weights(HIDDEN, f_fl)
+    rem_w = bitops.pack_bits(card(rng.integers(0, 2, (nhp, HIDDEN))))
+    wk_f = bitops.padded_words(f_fl)
+    adj_bytes = (group_bytes(a) + group_bytes(h)
+                 + 4 * (a.n_tile_rows + 1) * 2)
+    specs["gcn_bin_l1+halo"] = (
+        f"shard 0 ({npd} rows, halo {nhp}): ({npd}, {f_fl}) -> ({npd}, {wh}) "
+        f"words, intra {real_groups(a)} + halo {real_groups(h)} groups, "
+        f"{a.nnz} + {h.nnz} edges",
+        partial(fl.gcn_bin_l1, x, bn, w1, a, item_ptr=it[0], halo=h,
+                rem=rem_w, halo_items=it[1], bn_rcp=True),
+        partial(fl.gcn_bin_l1_plain, x, bn, w1, a, halo=h, rem=rem_w,
+                bn_rcp=True),
+        None, HIDDEN,
+        bound(4 * npd * f_fl + 8 * f_fl + 4 * HIDDEN * (wk_f + 1) + adj_bytes
+              + 4 * nhp * wh + 4 * npd * wh,
+              [(2 * npd * f_fl * HIDDEN, FP32_OPS_PER_S),
+               (2 * (a.nnz + h.nnz) * HIDDEN, INT8_TC_OPS_PER_S)]))
+    # 7f: GCN "full" layer 1, 500 -> 64 over the scaled pair, ReLU
+    a, h, it = shard0("gcn_full/fused", "adj")
+    x, bn, wf = ints((npd, f_fl)), bn_of(f_fl), weights(HIDDEN, f_fl)
+    rem = ints((h.n_cols, HIDDEN))
+    words, xs = fl._input(x, bn, True)
+    y = fl._bbf(words, xs, wf)
+    scale_bytes = 8 * npd + 4 * h.n_cols
+    specs["gcn_bbf_fbf+halo"] = (
+        f"shard 0 GCN full layer 1: ({npd}, {f_fl}) -> ({npd}, {HIDDEN}), "
+        f"intra {real_groups(a)} + halo {real_groups(h)} groups, "
+        f"{a.nnz} + {h.nnz} edges, rem ({h.n_cols}, {HIDDEN})",
+        partial(fl.gcn_bbf_fbf, x, bn, wf, a, True, it[0], h, rem, it[1],
+                True),
+        partial(fl.gcn_bbf_fbf_plain, x, bn, wf, a, True, h, rem, True),
+        fl.agg_fp_pair(a, h, y.abs(), rem.abs()), None,
+        bound(4 * npd * f_fl + 8 * f_fl + 4 * HIDDEN * (wk_f + 1)
+              + group_bytes(a) + group_bytes(h) + 8 * (a.n_tile_rows + 1)
+              + scale_bytes + 4 * h.n_cols * HIDDEN + 4 * npd * HIDDEN,
+              [(2 * npd * HIDDEN * f_fl, INT8_TC_OPS_PER_S),
+               (2 * npd * f_fl, FP32_OPS_PER_S),
+               (2 * (a.nnz + h.nnz) * HIDDEN, FP32_OPS_PER_S)]))
+    # GCN "bin" layer 2 (words 64 -> 7) with its pair: parity only
+    a2, h2, it2 = shard0("gcn_bin/fused", "adj")
+    hw = bitops.pack_bits(card(rng.integers(0, 2, (npd, HIDDEN))))
+    w2 = weights(n_cls, HIDDEN)
+    rem7 = ints((h2.n_cols, n_cls))
+    y2 = fl._bbf(*fl._input(hw, None), w2)
+    words_case = (
+        partial(fl.gcn_bbf_fbf, hw, None, w2, a2, False, it2[0], h2, rem7,
+                it2[1]),
+        partial(fl.gcn_bbf_fbf_plain, hw, None, w2, a2, False, h2, rem7),
+        fl.agg_fp_pair(a2, h2, y2.abs(), rem7.abs()))
+    # 7g: SAGE layer 1, 500 -> 64, self + mean pair, ReLU
+    a, h, it = shard0("sage/fused", "mean")
+    x, bn = ints((npd, f_fl)), bn_of(f_fl)
+    ws, wa = weights(HIDDEN, f_fl), weights(HIDDEN, f_fl)
+    rem = ints((h.n_cols, HIDDEN))
+    words, xs = fl._input(x, bn, True)
+    mag = fl._bbf(words, xs, ws).abs() + fl.agg_fp_pair(
+        a, h, fl._bbf(words, xs, wa).abs(), rem.abs())
+    specs["branch_add+halo"] = (
+        f"shard 0 SAGE layer 1: ({npd}, {f_fl}) -> ({npd}, {HIDDEN}), self + "
+        f"mean pair, intra {real_groups(a)} + halo {real_groups(h)} groups, "
+        f"{a.nnz} + {h.nnz} edges",
+        partial(fl.branch_add, x, bn, ws, wa, a, True, it[0], h, rem, it[1],
+                True),
+        partial(fl.branch_add_plain, x, bn, ws, wa, a, True, h, rem, True),
+        mag, None,
+        bound(4 * npd * f_fl + 8 * f_fl + 8 * HIDDEN * (wk_f + 1)
+              + group_bytes(a) + group_bytes(h) + 8 * (a.n_tile_rows + 1)
+              + 4 * npd + 4 * h.n_cols * HIDDEN + 4 * npd * HIDDEN,
+              [(4 * npd * HIDDEN * f_fl, INT8_TC_OPS_PER_S),
+               (2 * npd * f_fl, FP32_OPS_PER_S),
+               (2 * (a.nnz + h.nnz) * HIDDEN, FP32_OPS_PER_S)]))
+    # 7h: SAINT's fc, 64 -> 7, BN by the reciprocal (no aggregation)
+    xh, bnh, wc = ints((npd, HIDDEN)), bn_of(HIDDEN), weights(n_cls, HIDDEN)
+    wk_h = bitops.padded_words(HIDDEN)
+    specs["fc+rcp"] = (
+        f"shard 0 SAINT fc: ({npd}, {HIDDEN}) -> ({npd}, {n_cls})",
+        partial(fl.fc, xh, bnh, wc, bn_rcp=True),
+        partial(fl.fc_plain, xh, bnh, wc, bn_rcp=True),
+        fl._bbf(*fl._input(xh, bnh, True), wc).abs(), None,
+        bound(4 * npd * HIDDEN + 8 * HIDDEN + 4 * n_cls * (wk_h + 1)
+              + 4 * npd * n_cls,
+              [(2 * npd * n_cls * HIDDEN, INT8_TC_OPS_PER_S),
+               (2 * npd * HIDDEN, FP32_OPS_PER_S)]))
+
+    def hold(kernel, got, want, n_bits=None, magnitude=None):
+        hold_to(torch, err, kernel, got, want, n_bits, magnitude)
+
+    cases = 0
+    for kind, (_, call, plain, mag, n_bits, _) in specs.items():
+        got = call()
+        hold(f"fused_layer/{kind}", got, call())          # deterministic
+        hold(f"fused_layer/{kind}", got, plain(), n_bits=n_bits,
+             magnitude=mag)
+        cases += 2
+    got = words_case[0]()
+    hold("fused_layer/gcn_bbf_fbf+halo", got, words_case[0]())
+    hold("fused_layer/gcn_bbf_fbf+halo", got, words_case[1](),
+         magnitude=words_case[2])
+    cases += 2
+    torch.cuda.synchronize()
+    log(f"parity (sharded forms of the fused layer): {cases} cases passed; "
+        f"max abs err " + json.dumps(err))
+    records = []
+    for kind, (shape, call, plain, _, _, b) in specs.items():
+        name = f"fused_layer/{kind}"
+        records.append(kernel_record(
+            name, shape, launches[name], err[name], cuda_ms(torch, call),
+            cuda_ms(torch, plain, iters=5, warmup=1), None, b))
+    log("device ms (torch.profiler), sharded forms at shard 0: " + json.dumps(
+        {kind: device_ms(torch, call)
+         for kind, (_, call, _, _, _, _) in specs.items()}))
+    log(f"phases 8-10: {time.perf_counter() - t_start:.1f} s")
     return records
 
 

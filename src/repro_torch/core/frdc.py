@@ -235,6 +235,24 @@ def pad_frdc(m: FRDCMatrix, n_rows: int, n_cols: Optional[int] = None,
         col_scale=pad_scale(m.col_scale, m.n_cols, n_cols))
 
 
+def align_tile(n: int) -> int:
+    """Round up to the tile grid (min one tile): the per-shard uniform dims
+    of the sharded layer executors are tile-aligned so every shard's padded
+    FRDC block and operand rows share one shape."""
+    return -(-max(int(n), 1) // TILE) * TILE
+
+
+def pad_frdc_uniform(mats, n_rows: int, n_cols: int, n_groups: int) -> list:
+    """Pad a per-shard family of FRDC matrices to ONE shape: ``(n_rows,
+    n_cols)`` tile-aligned covers of every matrix and ``n_groups`` a cover
+    of every group count. Exact for the serving variants (see
+    :func:`pad_frdc`)."""
+    if n_rows % TILE or n_cols % TILE:
+        raise ValueError(f"uniform dims ({n_rows},{n_cols}) must be "
+                         f"TILE({TILE})-aligned")
+    return [pad_frdc(m, n_rows, n_cols, n_groups=n_groups) for m in mats]
+
+
 def to_dense(m: FRDCMatrix, dtype=torch.float32,
              apply_scales: bool = True) -> torch.Tensor:
     """Decode to a dense matrix on ``m``'s device — the BSpMM test oracle."""

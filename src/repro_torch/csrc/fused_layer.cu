@@ -41,6 +41,19 @@
 //   3. combine: one warp per tile-row adds its items' partials in item order,
 //      then applies the row scale, the self branch and the ReLU, or the sign
 //      (with the tail bits past the width cleared).
+// The sharded executors' pair body (the reference's agg(intra, y) +
+// agg(halo, rem) inside one fused_call) adds a second adjacency: the halo
+// matrix of the same tile-rows, whose columns are the rows of rem, the
+// other shards' transform of this shard's halo nodes (exchanged before the
+// launch; computed by the same kernel with aggregate = 0, so a remote row
+// equals the row its owner computes). Its column scale is folded into rem
+// (into remc, before the first barrier) as the intra one is into y, its
+// work items follow the intra ones in phase 2, and phase 3 sums the intra
+// items, then the halo items, adds the two sums and only then applies the
+// shared row scale: the association of the reference's serve_fp_pair.
+// Counts are integers, so the pair's are exact. bn_rcp takes BN as
+// (x - mu) * (1 / sd), the executors' apply_bn, where the single-host kinds
+// divide.
 // Every sum has a fixed order, so two runs give the same bits. The scratch
 // (transform output, partials) comes from the caller's torch.empty.
 // Bound on H100: BMM.FBB is 2 F H fp32 operations a row (89,252 x 500 x 64
@@ -90,6 +103,7 @@ struct Params {
   long long n_in;
   int f;   // input features (bits of the weights' contraction)
   int wk;  // words of f
+  int bn_rcp;  // sd holds 1 / sd: z = (x - mu) * sd (the sharded steps)
   // weights: packed W.T (ho, wk) and per-output scales; w_s/s_s: self branch
   const uint32_t* w_a;
   const float* s_a;
@@ -110,10 +124,21 @@ struct Params {
   int n_tile_rows;
   long long n_rows;
   int chunk;
+  // the halo adjacency of the sharded pair body (h_grp_ptr null: none):
+  // the same tile-rows, columns the rows of rem (its halo nodes' transform,
+  // fp32 rows or packed words), folded with its own column scale into remc
+  const int32_t* h_grp_ptr;
+  const int32_t* h_tiles;
+  const int32_t* h_col_idx;
+  const int32_t* h_item_ptr;
+  const float* h_col_scale;
+  const void* rem;
+  long long n_rem;
+  float* remc;  // (n_rem, ho) fp rows the halo items walk
   // scratch and output
   void* y;      // (n_in, ho) float, or (n_in, ceil(ho/32)) words when fbb
   float* ys;    // (n_in, ho) self branch
-  void* part;   // (max_items, 4, width) partial sums
+  void* part;   // (intra + halo items, 4, width) partial sums
   void* out;    // (n_rows, ho) float, or (n_rows, ceil(ho/32)) words
   // the fp aggregation's lane layout (walk::FpLanes), from the wrapper
   int fp_sub;
@@ -179,6 +204,7 @@ __device__ __forceinline__ void load_chunk(const Params& p, float* xb,
 // fmaf chain in k order from 0 (thread (tx, ty) holds rows ty + 16 i and
 // columns tx * 4 + j of the pass). The block's chunks of x, over its tiles
 // and passes, come in by cp.async one ahead of their use.
+template <bool kRcp>
 __device__ void transform_fbb(const Params& p, float* smem) {
   const int f4 = (p.f + 3) & ~3;
   float* xs = smem;                            // [2][kFbbRows][kChunkLd]
@@ -238,12 +264,14 @@ __device__ void transform_fbb(const Params& p, float* smem) {
         else if (t + gridDim.x < n_tiles)
           load_chunk(p, next, r0 + (long long)gridDim.x * kFbbRows,
                      tile_rows(t + gridDim.x), 0, vec, tid);
-        if (p.mu) {  // BN once an element: z = (x - mu) / sd
+        if (p.mu) {  // BN once an element: z = (x - mu) / sd, or * (1 / sd)
           const int k = tid & 31;
           if (k < kn) {
             const float mu = mus[k0 + k], sd = sds[k0 + k];
-            for (int r = tid >> 5; r < rows; r += kWarps)
-              xb[r * kChunkLd + k] = (xb[r * kChunkLd + k] - mu) / sd;
+            for (int r = tid >> 5; r < rows; r += kWarps) {
+              const float d = xb[r * kChunkLd + k] - mu;
+              xb[r * kChunkLd + k] = kRcp ? d * sd : d / sd;
+            }
           }
         }
         {  // the chunk is word kc of each column's weights: +s_j where the
@@ -316,6 +344,7 @@ __device__ void transform_fbb(const Params& p, float* smem) {
 // with unit scales. The products are mma tiles of xnor.cuh: warp w takes
 // rows (w % 4) * 16 .. + 16 of the tile; with a self branch warps 4-7
 // multiply w_s, else they take the column n-tiles 4-7 of the pass.
+template <bool kRcp>
 __device__ void transform_bbf(const Params& p, uint32_t* smem) {
   constexpr int kRowsPerWarp = kBbfRows / kWarps;
   const int lda = xnor::pad_ld(p.wk);
@@ -391,7 +420,7 @@ __device__ void transform_bbf(const Params& p, uint32_t* smem) {
           if (r >= rows) break;  // uniform across the warp
           float z = in ? xb[r * kChunkLd + lane] : 0.f;
           if (in) {
-            if (p.mu) z = (z - mu) / sd;
+            if (p.mu) z = kRcp ? (z - mu) * sd : (z - mu) / sd;
             sabs[i] += fabsf(z);
           }
           const uint32_t word = __ballot_sync(kFull, in && z >= 0.f);
@@ -487,33 +516,45 @@ __device__ void transform_bbf(const Params& p, uint32_t* smem) {
   }
 }
 
-// Warp `it`'s work item: tile-row `row` with item_ptr[row] <= it <
+// One adjacency of phase 2: its arrays, its work items and the rows its
+// groups gather (y for the intra matrix, rem or remc for the halo one).
+struct Walked {
+  const int32_t* grp_ptr;
+  const int32_t* tiles;
+  const int32_t* col_idx;
+  const int32_t* item_ptr;
+  const void* x;
+  long long n_x;
+};
+
+// Work item `it` of `a`: tile-row `row` with item_ptr[row] <= it <
 // item_ptr[row + 1], groups [g0, g1).
-__device__ __forceinline__ void find_item(const Params& p, long long it,
-                                          int* row, int* g0, int* g1) {
-  int lo = 0, hi = p.n_tile_rows;
+__device__ __forceinline__ void find_item(const Walked& a, int n_tile_rows,
+                                          int chunk, long long it, int* row,
+                                          int* g0, int* g1) {
+  int lo = 0, hi = n_tile_rows;
   while (hi - lo > 1) {
     const int mid = (lo + hi) >> 1;
-    if (p.item_ptr[mid] <= it) lo = mid; else hi = mid;
+    if (a.item_ptr[mid] <= it) lo = mid; else hi = mid;
   }
   *row = lo;
-  *g0 = p.grp_ptr[lo] + (int)(it - p.item_ptr[lo]) * p.chunk;
-  *g1 = min(*g0 + p.chunk, p.grp_ptr[lo + 1]);
+  *g0 = a.grp_ptr[lo] + (int)(it - a.item_ptr[lo]) * chunk;
+  *g1 = min(*g0 + chunk, a.grp_ptr[lo + 1]);
 }
 
-// Phase 2 for one counts work item: its partial sums, every word of y in
-// passes of kW words (walk::bits), to `part`.
+// Phase 2 for one counts work item: its partial sums, every word of the
+// walked rows in passes of kW words (walk::bits), to `part`.
 template <int kW, bool kS2>
-__device__ __forceinline__ void aggregate_counts(const Params& p, int32_t* part,
+__device__ __forceinline__ void aggregate_counts(const Walked& a, int32_t* part,
                                                  int g0, int g1, int wh,
                                                  int lane) {
-  const uint32_t* y = (const uint32_t*)p.y;
+  const uint32_t* y = (const uint32_t*)a.x;
   const bool vec = wh % kW == 0 && (uintptr_t)y % (4 * kW) == 0;
   for (int w = 0; w < wh; w += kW) {
     const int nw = min(kW, wh - w);
     int acc[kTile][kW] = {};
-    walk::bits<kW, kS2, true>(p.tiles, p.col_idx, y, g0, g1, w, nw, wh,
-                              vec && nw == kW, p.n_in, lane, acc);
+    walk::bits<kW, kS2, true>(a.tiles, a.col_idx, y, g0, g1, w, nw, wh,
+                              vec && nw == kW, a.n_x, lane, acc);
 #pragma unroll
     for (int j = 0; j < kW; ++j) {
       if (j >= nw) break;
@@ -526,20 +567,26 @@ __device__ __forceinline__ void aggregate_counts(const Params& p, int32_t* part,
 
 // Phase 2 for one fp work item: its partial sums, every column, to `part`.
 template <int kSub, int kCols, bool kVec>
-__device__ __forceinline__ void aggregate_fp(const Params& p, float* part,
-                                             int g0, int g1, int lane,
-                                             int2* hits) {
+__device__ __forceinline__ void aggregate_fp(const Walked& a, int ho,
+                                             float* part, int g0, int g1,
+                                             int lane, int2* hits) {
   using L = walk::FpLanes<kSub, kCols, kVec>;
-  for (int c0 = 0; c0 < p.ho; c0 += L::kPass) {
+  for (int c0 = 0; c0 < ho; c0 += L::kPass) {
     float acc[kTile][kCols] = {};
-    walk::fp<kSub, kCols, kVec, true>(p.tiles, p.col_idx, (const float*)p.y,
-                                      g0, g1, c0, p.ho, p.ho, p.n_in, lane,
-                                      hits, acc);
+    walk::fp<kSub, kCols, kVec, true>(a.tiles, a.col_idx, (const float*)a.x,
+                                      g0, g1, c0, ho, ho, a.n_x, lane, hits,
+                                      acc);
     walk::fold<kSub, kCols>(acc);
-    walk::store<kSub, kCols, kVec>(part, p.ho, c0, p.ho, lane, acc);
+    walk::store<kSub, kCols, kVec>(part, ho, c0, ho, lane, acc);
   }
 }
 
+// kPair: the sharded pair body (p.h_grp_ptr set); kRcp: BN as (x - mu) *
+// sd, sd holding 1 / sd (p.bn_rcp). Template arguments, so that the
+// single-host kinds run an instantiation with neither, whose registers
+// the sharded code does not crowd (with either one a runtime choice they
+// read 2-5% slower in tools/xform_step0.py).
+template <bool kPair, bool kRcp>
 __global__ void __launch_bounds__(kThreads, 2) fused_layer_kernel(Params p) {
   extern __shared__ uint4 s_tile[];
   __shared__ int2 s_hits[kWarps][walk::kHitsPerLoad];
@@ -550,25 +597,43 @@ __global__ void __launch_bounds__(kThreads, 2) fused_layer_kernel(Params p) {
   const int wh = (p.ho + 31) / 32;
 
   if (p.fbb)
-    transform_fbb(p, (float*)s_tile);
+    transform_fbb<kRcp>(p, (float*)s_tile);
   else
-    transform_bbf(p, (uint32_t*)s_tile);
+    transform_bbf<kRcp>(p, (uint32_t*)s_tile);
   if (!p.aggregate) return;
+  // the fp halo operand, rem times the halo column scale (as the intra
+  // scale is folded into y), to remc: aligned for the walk's vector loads
+  if (kPair && !p.fbb) {
+    const float* rem = (const float*)p.rem;
+    const long long n = p.n_rem * p.ho;
+    for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x; e < n;
+         e += (long long)gridDim.x * kThreads)
+      p.remc[e] = p.h_col_scale ? rem[e] * p.h_col_scale[e / p.ho] : rem[e];
+  }
   grid.sync();
 
-  // 2. aggregate: partial sums per work item
+  // 2. aggregate: partial sums per work item, the intra items, then the
+  // halo items (their partials follow the intra ones in `part`)
   const int width = p.fbb ? wh * 32 : p.ho;
-  const long long n_items = p.item_ptr[p.n_tile_rows];
+  const Walked intra = {p.grp_ptr, p.tiles, p.col_idx, p.item_ptr, p.y, p.n_in};
+  const Walked halo = {p.h_grp_ptr, p.h_tiles, p.h_col_idx, p.h_item_ptr,
+                       p.fbb ? p.rem : (const void*)p.remc, p.n_rem};
+  const long long n_intra = p.item_ptr[p.n_tile_rows];
+  const long long n_items =
+      n_intra + (kPair ? p.h_item_ptr[p.n_tile_rows] : 0);
   for (long long it = gw; it < n_items; it += n_warps) {
+    const bool in_halo = kPair && it >= n_intra;
+    const Walked a = in_halo ? halo : intra;
     int row, g0, g1;
-    find_item(p, it, &row, &g0, &g1);
+    find_item(a, p.n_tile_rows, p.chunk, in_halo ? it - n_intra : it, &row,
+              &g0, &g1);
     if (p.fbb) {
       int32_t* part = (int32_t*)p.part + it * kTile * width;
 #define AGGREGATE(W)                                                    \
   if (p.s2)                                                             \
-    aggregate_counts<W, true>(p, part, g0, g1, wh, lane);               \
+    aggregate_counts<W, true>(a, part, g0, g1, wh, lane);               \
   else                                                                  \
-    aggregate_counts<W, false>(p, part, g0, g1, wh, lane);
+    aggregate_counts<W, false>(a, part, g0, g1, wh, lane);
       switch (walk::bits_pass(wh)) {
         case 1: AGGREGATE(1) break;
         case 2: AGGREGATE(2) break;
@@ -579,7 +644,7 @@ __global__ void __launch_bounds__(kThreads, 2) fused_layer_kernel(Params p) {
       float* part = (float*)p.part + it * kTile * width;
 #define AGGREGATE(S, C, V)                                              \
   if (p.fp_sub == S && p.fp_cols == C && p.fp_vec == (V))               \
-    aggregate_fp<S, C, V>(p, part, g0, g1, lane, s_hits[warp]);         \
+    aggregate_fp<S, C, V>(a, p.ho, part, g0, g1, lane, s_hits[warp]);   \
   else
       WALK_FP_LAYOUTS(AGGREGATE) {}
 #undef AGGREGATE
@@ -587,15 +652,24 @@ __global__ void __launch_bounds__(kThreads, 2) fused_layer_kernel(Params p) {
   }
   grid.sync();
 
-  // 3. combine: add the items of each tile-row in order, then the epilogue
+  // 3. combine: per tile-row, the intra items' partials added in item
+  // order, the halo items' likewise, the two sums added; then the epilogue
+  // (the row scale once, after the add, as ops.serve_fp_pair)
   for (long long tr = gw; tr < p.n_tile_rows; tr += n_warps) {
     const int i0 = p.item_ptr[tr], i1 = p.item_ptr[tr + 1];
+    const long long h0 = kPair ? n_intra + p.h_item_ptr[tr] : 0;
+    const long long h1 = kPair ? n_intra + p.h_item_ptr[tr + 1] : 0;
     const long long row0 = tr * kTile;
     if (p.fbb) {
       for (int w = 0; w < wh; ++w) {
         int acc[kTile] = {0, 0, 0, 0};
-        for (int it = i0; it < i1; ++it) {
-          const int32_t* part = (const int32_t*)p.part + (long long)it * kTile * width;
+        for (long long it = i0; it < i1; ++it) {
+          const int32_t* part = (const int32_t*)p.part + it * kTile * width;
+#pragma unroll
+          for (int i = 0; i < kTile; ++i) acc[i] += __ldcg(part + i * width + w * 32 + lane);
+        }
+        for (long long it = h0; it < h1; ++it) {  // integers: exact in any order
+          const int32_t* part = (const int32_t*)p.part + it * kTile * width;
 #pragma unroll
           for (int i = 0; i < kTile; ++i) acc[i] += __ldcg(part + i * width + w * 32 + lane);
         }
@@ -612,10 +686,20 @@ __global__ void __launch_bounds__(kThreads, 2) fused_layer_kernel(Params p) {
         const int col = c0 + lane;
         if (col >= p.ho) break;
         float acc[kTile] = {0.f, 0.f, 0.f, 0.f};
-        for (int it = i0; it < i1; ++it) {
-          const float* part = (const float*)p.part + (long long)it * kTile * width;
+        for (long long it = i0; it < i1; ++it) {
+          const float* part = (const float*)p.part + it * kTile * width;
 #pragma unroll
           for (int i = 0; i < kTile; ++i) acc[i] += __ldcg(part + i * width + col);
+        }
+        if (h1 > h0) {
+          float hacc[kTile] = {0.f, 0.f, 0.f, 0.f};
+          for (long long it = h0; it < h1; ++it) {
+            const float* part = (const float*)p.part + it * kTile * width;
+#pragma unroll
+            for (int i = 0; i < kTile; ++i) hacc[i] += __ldcg(part + i * width + col);
+          }
+#pragma unroll
+          for (int i = 0; i < kTile; ++i) acc[i] = acc[i] + hacc[i];
         }
 #pragma unroll
         for (int i = 0; i < kTile; ++i) {
@@ -643,15 +727,22 @@ extern "C" int fused_layer(const void* params, void* stream) {
   if (p.wk > kMaxWords || (p.ho + 31) / 32 > kMaxChunks ||
       p.wk != (p.f + 31) / 32)
     return (int)cudaErrorInvalidValue;
+  if (p.h_grp_ptr && (!p.h_item_ptr || !p.rem || (!p.fbb && !p.remc)))
+    return (int)cudaErrorInvalidValue;
   if (p.aggregate && !p.fbb &&
       walk::with_fp_layout(p.fp_sub, p.fp_cols, p.fp_vec,
                            [](auto, auto, auto) { return cudaSuccess; }) != cudaSuccess)
     return (int)cudaErrorInvalidValue;
   const int smem = transform_smem(p.f, p.fbb, p.w_s != nullptr);
   int resident = 0;
-  cudaError_t e = launch::allow_smem(fused_layer_kernel, smem);
+  using Kernel = void (*)(Params);
+  const Kernel kernels[2][2] = {
+      {fused_layer_kernel<false, false>, fused_layer_kernel<false, true>},
+      {fused_layer_kernel<true, false>, fused_layer_kernel<true, true>}};
+  const Kernel kernel = kernels[p.h_grp_ptr != nullptr][p.bn_rcp != 0];
+  cudaError_t e = launch::allow_smem(kernel, smem);
   if (e == cudaSuccess)
-    e = launch::resident_blocks(fused_layer_kernel, kThreads, smem, &resident);
+    e = launch::resident_blocks(kernel, kThreads, smem, &resident);
   if (e != cudaSuccess) return (int)e;
   const int tile_rows = p.fbb ? kFbbRows : kBbfRows;
   long long want = (p.n_in + tile_rows - 1) / tile_rows;
@@ -660,7 +751,7 @@ extern "C" int fused_layer(const void* params, void* stream) {
   long long blocks = want < resident ? want : resident;
   if (blocks < 1) blocks = 1;
   void* args[] = {&p};
-  e = cudaLaunchCooperativeKernel((const void*)fused_layer_kernel, dim3((unsigned)blocks),
+  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3((unsigned)blocks),
                                   dim3(kThreads), args, (size_t)smem,
                                   (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
@@ -672,6 +763,6 @@ extern "C" int fused_layer(const void* params, void* stream) {
 // features in BMM.FBB (fbb) or BMM.BBF (with the self branch's weights or
 // without): out[0..3]. One build serves every kind and layout.
 extern "C" int fused_layer_attrs(int f, int fbb, int self_branch, int* out) {
-  return (int)launch::attributes(fused_layer_kernel, kThreads,
+  return (int)launch::attributes(fused_layer_kernel<false, false>, kThreads,
                                  transform_smem(f, fbb, self_branch), out);
 }

@@ -27,6 +27,15 @@ plain version: the same transform with PyTorch ops, then
 ``bspmm_kernel`` (the order of the sums does not change the integer
 counts, and fp results are held to a tolerance of their sum of |terms|).
 
+The sharded executors' step (the reference's ``fused_call`` of BN ->
+transform -> ``agg(intra, y) + agg(halo, rem)`` -> post) is each kind with
+``halo``/``rem``: the kernel walks the halo adjacency's items over the
+exchanged rows ``rem`` beside the intra items over its own transform, adds
+the halo sums to the intra sums and applies the shared row scale once
+(plain: :func:`agg_fp_pair`, :func:`agg_counts_pair`); ``bn_rcp`` takes
+BN as the executors' ``(x - mu) * (1 / sd)``; :func:`transform` is the
+kernel's transform alone, the rows the shards exchange.
+
 :data:`KERNEL_CALLS` counts fused layers (``fused``) and the aggregations
 folded into them (``fused_aggs``) on either device, as the reference's
 trace-time counters do; :data:`LAUNCHES` counts CUDA launches.
@@ -48,7 +57,12 @@ if TYPE_CHECKING:   # core.binarize imports kernels.ops, which imports this
     from ..core.binarize import BinTensor
 
 KERNEL_CALLS = {"fused": 0, "fused_aggs": 0}
-LAUNCHES = {"fused_layer": 0}  # CUDA launches (plain calls not counted)
+# CUDA launches (plain calls not counted): every launch, and apart the
+# sharded executors' forms: each kind with the halo pair, fc with BN by
+# the reciprocal, and the transform alone
+PAIR_FORMS = ("gcn_bin_l1+halo", "gcn_bbf_fbf+halo", "branch_add+halo",
+              "fc+rcp", "transform")
+LAUNCHES = {"fused_layer": 0, **{f"fused_layer/{k}": 0 for k in PAIR_FORMS}}
 
 
 def reset_counters() -> None:
@@ -82,15 +96,38 @@ def agg_counts(adj: FRDCMatrix, x_packed: torch.Tensor,
                             trinary_mode)[: adj.n_rows]
 
 
+def agg_fp_pair(intra: FRDCMatrix, halo: FRDCMatrix, x_local: torch.Tensor,
+                x_remote: torch.Tensor) -> torch.Tensor:
+    """Plain intra+halo stage of a sharded fp layer, the twin of
+    ``ops.serve_fp_pair``: each column scale folded into its own operand,
+    the two raw sums added, then the shared row scale applied once."""
+    y = agg_fp(intra._replace(row_scale=None), x_local) \
+        + agg_fp(halo._replace(row_scale=None), x_remote)
+    if intra.row_scale is not None:
+        y = y * intra.row_scale[:, None].to(y.dtype)
+    return y
+
+
+def agg_counts_pair(intra: FRDCMatrix, halo: FRDCMatrix,
+                    xp_local: torch.Tensor, xp_remote: torch.Tensor,
+                    trinary_mode: str = "s3_two_popc") -> torch.Tensor:
+    """Plain intra+halo stage of the sharded packed layer: the two integer
+    count sums added (exact in any order)."""
+    return agg_counts(intra, xp_local, trinary_mode) \
+        + agg_counts(halo, xp_remote, trinary_mode)
+
+
 # ---------------------------------------------------------------------------
 # Plain versions of the four layer kinds
 # ---------------------------------------------------------------------------
 
-def _bn(x: torch.Tensor, bn) -> torch.Tensor:
+def _bn(x: torch.Tensor, bn, rcp: bool = False) -> torch.Tensor:
+    """Frozen BN: ``(x - mu) / sd``, or with ``rcp`` the sharded executors'
+    ``(x - mu) * (1.0 / sd)`` (``session_core.apply_bn``)."""
     if bn is None:
         return x
     mu, sd = bn
-    return (x - mu) / sd
+    return (x - mu) * (1.0 / sd) if rcp else (x - mu) / sd
 
 
 def _quantize(z: torch.Tensor):
@@ -105,41 +142,65 @@ def _bbf(words: torch.Tensor, xs, w: BinTensor) -> torch.Tensor:
     return counts * xs * w.scale.reshape(1, -1)
 
 
-def _input(h: torch.Tensor, bn):
+def _input(h: torch.Tensor, bn, rcp: bool = False):
     """(sign words, row scales) of a layer input: fp rows go through BN and
     quantize_act; int32 rows are packed words with unit scales."""
     if h.dtype == torch.int32:
         return h, h.new_ones((h.shape[0], 1), dtype=torch.float32)
-    return _quantize(_bn(h, bn))
+    return _quantize(_bn(h, bn, rcp))
+
+
+def _fbb(x, bn, w: BinTensor, rcp: bool = False) -> torch.Tensor:
+    """BMM.FBB: sign words of BN(x) times the dequantized weights."""
+    w_eff = (bitops.unpack_pm1(w.packed, w.n) * w.scale).T
+    return pack_kernel.binarize_pack_plain(_bn(x, bn, rcp) @ w_eff)
+
+
+def _agg(adj, y, halo, rem):
+    """fp aggregation over one adjacency, or over the intra+halo pair."""
+    return agg_fp(adj, y) if halo is None else agg_fp_pair(adj, halo, y, rem)
 
 
 def gcn_bin_l1_plain(x, bn, w: BinTensor, adj: FRDCMatrix,
-                     trinary_mode: str = "s3_two_popc") -> torch.Tensor:
-    z = _bn(x, bn)
-    w_eff = (bitops.unpack_pm1(w.packed, w.n) * w.scale).T
-    hb = pack_kernel.binarize_pack_plain(z @ w_eff)
-    n_out = w.packed.shape[0]
-    counts = agg_counts(adj, hb, trinary_mode)[:, :n_out]
-    return bitops.pack_bits(counts >= 0, axis=-1)
+                     trinary_mode: str = "s3_two_popc",
+                     halo: Optional[FRDCMatrix] = None,
+                     rem: Optional[torch.Tensor] = None,
+                     bn_rcp: bool = False) -> torch.Tensor:
+    hb = _fbb(x, bn, w, bn_rcp)
+    counts = agg_counts(adj, hb, trinary_mode) if halo is None \
+        else agg_counts_pair(adj, halo, hb, rem, trinary_mode)
+    return bitops.pack_bits(counts[:, :w.packed.shape[0]] >= 0, axis=-1)
 
 
 def gcn_bbf_fbf_plain(h, bn, w: BinTensor, adj: FRDCMatrix,
-                      relu: bool = False) -> torch.Tensor:
-    words, xs = _input(h, bn)
-    out = agg_fp(adj, _bbf(words, xs, w))
+                      relu: bool = False, halo: Optional[FRDCMatrix] = None,
+                      rem: Optional[torch.Tensor] = None,
+                      bn_rcp: bool = False) -> torch.Tensor:
+    words, xs = _input(h, bn, bn_rcp)
+    out = _agg(adj, _bbf(words, xs, w), halo, rem)
     return torch.relu(out) if relu else out
 
 
 def branch_add_plain(h, bn, w_self: BinTensor, w_agg: BinTensor,
-                     adj: FRDCMatrix, relu: bool = False) -> torch.Tensor:
-    words, xs = _input(h, bn)
-    out = _bbf(words, xs, w_self) + agg_fp(adj, _bbf(words, xs, w_agg))
+                     adj: FRDCMatrix, relu: bool = False,
+                     halo: Optional[FRDCMatrix] = None,
+                     rem: Optional[torch.Tensor] = None,
+                     bn_rcp: bool = False) -> torch.Tensor:
+    words, xs = _input(h, bn, bn_rcp)
+    out = _bbf(words, xs, w_self) + _agg(adj, _bbf(words, xs, w_agg), halo,
+                                         rem)
     return torch.relu(out) if relu else out
 
 
-def fc_plain(h, bn, w: BinTensor) -> torch.Tensor:
-    words, xs = _input(h, bn)
+def fc_plain(h, bn, w: BinTensor, bn_rcp: bool = False) -> torch.Tensor:
+    words, xs = _input(h, bn, bn_rcp)
     return _bbf(words, xs, w)
+
+
+def transform_plain(h, bn, w: BinTensor, fbb: bool = False,
+                    bn_rcp: bool = False) -> torch.Tensor:
+    """A layer's transform alone: BMM.FBB sign words, or BMM.BBF rows."""
+    return _fbb(h, bn, w, bn_rcp) if fbb else fc_plain(h, bn, w, bn_rcp)
 
 
 # ---------------------------------------------------------------------------
@@ -154,6 +215,7 @@ class _Params(ctypes.Structure):
     _fields_ = [
         ("x", _P), ("xw", _P), ("mu", _P), ("sd", _P),
         ("n_in", ctypes.c_longlong), ("f", ctypes.c_int), ("wk", ctypes.c_int),
+        ("bn_rcp", ctypes.c_int),
         ("w_a", _P), ("s_a", _P), ("w_s", _P), ("s_s", _P),
         ("ho", ctypes.c_int), ("fbb", ctypes.c_int),
         ("aggregate", ctypes.c_int), ("s2", ctypes.c_int),
@@ -162,6 +224,9 @@ class _Params(ctypes.Structure):
         ("row_scale", _P), ("col_scale", _P),
         ("n_tile_rows", ctypes.c_int), ("n_rows", ctypes.c_longlong),
         ("chunk", ctypes.c_int),
+        ("h_grp_ptr", _P), ("h_tiles", _P), ("h_col_idx", _P),
+        ("h_item_ptr", _P), ("h_col_scale", _P),
+        ("rem", _P), ("n_rem", ctypes.c_longlong), ("remc", _P),
         ("y", _P), ("ys", _P), ("part", _P), ("out", _P),
         ("fp_sub", ctypes.c_int), ("fp_cols", ctypes.c_int),
         ("fp_vec", ctypes.c_int),
@@ -194,7 +259,15 @@ def _ptr(t: Optional[torch.Tensor], dev, dtype, what: str):
 def _launch(h: torch.Tensor, bn, w_a: BinTensor, adj: Optional[FRDCMatrix],
             w_s: Optional[BinTensor] = None, fbb: bool = False,
             relu: bool = False, trinary_mode: str = "s3_two_popc",
-            item_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
+            item_ptr: Optional[torch.Tensor] = None,
+            halo: Optional[FRDCMatrix] = None,
+            rem: Optional[torch.Tensor] = None,
+            halo_items: Optional[torch.Tensor] = None,
+            bn_rcp: bool = False, form: Optional[str] = None) -> torch.Tensor:
+    """One fused launch (``form``: its :data:`PAIR_FORMS` counter). Without ``adj`` the kernel stops after its
+    transform and returns it: BMM.FBB sign words, or BMM.BBF rows (the
+    self branch's product is then not returned). With ``halo`` and ``rem``
+    (the exchanged rows of its columns) it aggregates the intra+halo pair."""
     dev = h.device
     if h.ndim != 2 or h.dtype not in (torch.float32, torch.int32):
         raise ValueError(f"fused layer takes 2-D float32 rows or int32 words, "
@@ -213,6 +286,9 @@ def _launch(h: torch.Tensor, bn, w_a: BinTensor, adj: Optional[FRDCMatrix],
     if h.shape[1] != (wk if packed_in else f):
         raise ValueError(f"fused layer: input width {h.shape[1]} does not "
                          f"match the weights ({f} features)")
+    if (halo is None) != (rem is None) or (halo is not None and adj is None):
+        raise ValueError("fused layer: the halo adjacency needs its rows "
+                         "(rem) and an intra adjacency")
     p = _Params()
     keep = []   # tensors whose pointers the struct holds
 
@@ -225,10 +301,13 @@ def _launch(h: torch.Tensor, bn, w_a: BinTensor, adj: Optional[FRDCMatrix],
     else:
         p.x = _ptr(h, dev, torch.float32, "input rows")
         if bn is not None:
+            sd = bn[1].reshape(-1)
             p.mu = _ptr(hold(bn[0].reshape(-1).contiguous()), dev,
                         torch.float32, "BN mean")
-            p.sd = _ptr(hold(bn[1].reshape(-1).contiguous()), dev,
+            # the reciprocal as apply_bn takes it: one IEEE division here
+            p.sd = _ptr(hold((1.0 / sd if bn_rcp else sd).contiguous()), dev,
                         torch.float32, "BN sd")
+            p.bn_rcp = int(bn_rcp)
     p.n_in, p.f, p.wk, p.ho = n_in, f, wk, ho
     p.w_a = _ptr(w_a.packed, dev, torch.int32, "weights")
     p.s_a = _ptr(hold(w_a.scale.reshape(-1).contiguous()), dev, torch.float32,
@@ -241,7 +320,11 @@ def _launch(h: torch.Tensor, bn, w_a: BinTensor, adj: Optional[FRDCMatrix],
     p.s2 = int(trinary_mode == "s2_and_andnot")
     wh = -(-ho // WORD)
     if adj is None:
-        out = torch.empty((n_in, ho), dtype=torch.float32, device=dev)
+        out = torch.empty((n_in, wh if fbb else ho),
+                          dtype=torch.int32 if fbb else torch.float32,
+                          device=dev)
+        if fbb:
+            p.y = out.data_ptr()
     else:
         _check_adj(adj, h, "fused layer")
         if adj.n_cols != n_in or (w_s is not None and adj.n_rows != n_in):
@@ -259,6 +342,30 @@ def _launch(h: torch.Tensor, bn, w_a: BinTensor, adj: Optional[FRDCMatrix],
         p.col_scale = _ptr(adj.col_scale, dev, torch.float32, "col scale")
         p.n_tile_rows, p.n_rows = adj.n_tile_rows, adj.n_rows
         p.chunk = GROUPS_PER_ITEM
+        n_items = max_items(adj)
+        if halo is not None:
+            _check_adj(halo, h, "fused layer halo")
+            if halo.n_rows != adj.n_rows or rem.ndim != 2 \
+                    or rem.shape[1] != (wh if fbb else ho) \
+                    or rem.shape[0] < halo.n_cols:
+                raise ValueError(
+                    f"fused layer: a ({halo.n_rows}, {halo.n_cols}) halo "
+                    f"adjacency with rem {tuple(rem.shape)} for "
+                    f"{adj.n_rows} rows of width {ho}")
+            if halo_items is None:
+                halo_items = work_items(halo.grp_ptr)
+            rem = rem.contiguous()
+            p.h_grp_ptr, p.h_tiles = (halo.grp_ptr.data_ptr(),
+                                      halo.tiles.data_ptr())
+            p.h_col_idx = halo.col_idx.data_ptr()
+            p.h_item_ptr = _ptr(halo_items, dev, torch.int32, "halo items")
+            p.h_col_scale = _ptr(halo.col_scale, dev, torch.float32,
+                                 "halo col scale")
+            p.rem = _ptr(rem, dev, kind, "rem")
+            p.n_rem = rem.shape[0]
+            if not fbb:   # the fp walk reads rem's rows, scaled, from here
+                p.remc = hold(torch.empty_like(rem)).data_ptr()
+            n_items += max_items(halo)
         y = hold(torch.empty((n_in, wh if fbb else ho), dtype=kind,
                              device=dev))
         p.y = y.data_ptr()
@@ -266,7 +373,7 @@ def _launch(h: torch.Tensor, bn, w_a: BinTensor, adj: Optional[FRDCMatrix],
         if w_s is not None:
             p.ys = hold(torch.empty((n_in, ho), dtype=torch.float32,
                                     device=dev)).data_ptr()
-        p.part = hold(torch.empty(max_items(adj) * TILE * width, dtype=kind,
+        p.part = hold(torch.empty(n_items * TILE * width, dtype=kind,
                                   device=dev)).data_ptr()
         out = torch.empty((adj.n_rows, wh if fbb else ho), dtype=kind,
                           device=dev)
@@ -275,8 +382,10 @@ def _launch(h: torch.Tensor, bn, w_a: BinTensor, adj: Optional[FRDCMatrix],
     build.check(build.library("fused_layer").fused_layer(
         ctypes.byref(p), stream), "fused_layer")
     LAUNCHES["fused_layer"] += 1
+    if form is not None:
+        LAUNCHES[f"fused_layer/{form}"] += 1
     if adj is not None:
-        KERNEL_CALLS["fused_aggs"] += 1
+        KERNEL_CALLS["fused_aggs"] += 1 + (halo is not None)
     return out
 
 
@@ -288,47 +397,89 @@ def _on_card(t: torch.Tensor) -> bool:
     raise RuntimeError(f"repro_torch has no kernels for device {t.device}")
 
 
+def _pair_form(kind: str, halo) -> Optional[str]:
+    return None if halo is None else f"{kind}+halo"
+
+
 # ---------------------------------------------------------------------------
 # Entry points: one fused layer each
 # ---------------------------------------------------------------------------
+# ``halo``/``rem``/``halo_items``: the sharded executors' pair body, the
+# halo adjacency of this shard's rows (columns: its halo nodes), the
+# exchanged rows of those nodes (the same transform, computed by their
+# owners with :func:`transform`) and its work items; ``bn_rcp`` takes the
+# executors' BN by the reciprocal.
 
 def gcn_bin_l1(x: torch.Tensor, bn, w: BinTensor, adj: FRDCMatrix,
                trinary_mode: str = "s3_two_popc",
-               item_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
+               item_ptr: Optional[torch.Tensor] = None,
+               halo: Optional[FRDCMatrix] = None,
+               rem: Optional[torch.Tensor] = None,
+               halo_items: Optional[torch.Tensor] = None,
+               bn_rcp: bool = False) -> torch.Tensor:
     """GCN "bin" layer 1: BN -> BMM.FBB -> BSpMM.BBB over the 0/1 adjacency;
     returns (n_rows, ceil(H/32)) int32 sign words (unit scales)."""
     KERNEL_CALLS["fused"] += 1
     if _on_card(x):
         return _launch(x, bn, w, adj, fbb=True, trinary_mode=trinary_mode,
-                       item_ptr=item_ptr)
-    return gcn_bin_l1_plain(x, bn, w, adj, trinary_mode)
+                       item_ptr=item_ptr, halo=halo, rem=rem,
+                       halo_items=halo_items, bn_rcp=bn_rcp,
+                       form=_pair_form("gcn_bin_l1", halo))
+    return gcn_bin_l1_plain(x, bn, w, adj, trinary_mode, halo, rem, bn_rcp)
 
 
 def gcn_bbf_fbf(h: torch.Tensor, bn, w: BinTensor, adj: FRDCMatrix,
                 relu: bool = False,
-                item_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
+                item_ptr: Optional[torch.Tensor] = None,
+                halo: Optional[FRDCMatrix] = None,
+                rem: Optional[torch.Tensor] = None,
+                halo_items: Optional[torch.Tensor] = None,
+                bn_rcp: bool = False) -> torch.Tensor:
     """[BN -> quantize_act] -> BMM.BBF -> BSpMM.FBF [-> ReLU]; ``h`` is fp
     rows, or int32 sign words with unit scales (``bn`` None)."""
     KERNEL_CALLS["fused"] += 1
     if _on_card(h):
-        return _launch(h, bn, w, adj, relu=relu, item_ptr=item_ptr)
-    return gcn_bbf_fbf_plain(h, bn, w, adj, relu)
+        return _launch(h, bn, w, adj, relu=relu, item_ptr=item_ptr,
+                       halo=halo, rem=rem, halo_items=halo_items,
+                       bn_rcp=bn_rcp, form=_pair_form("gcn_bbf_fbf", halo))
+    return gcn_bbf_fbf_plain(h, bn, w, adj, relu, halo, rem, bn_rcp)
 
 
 def branch_add(h: torch.Tensor, bn, w_self: BinTensor, w_agg: BinTensor,
                adj: FRDCMatrix, relu: bool = False,
-               item_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
+               item_ptr: Optional[torch.Tensor] = None,
+               halo: Optional[FRDCMatrix] = None,
+               rem: Optional[torch.Tensor] = None,
+               halo_items: Optional[torch.Tensor] = None,
+               bn_rcp: bool = False) -> torch.Tensor:
     """BN -> quantize_act -> BMM.BBF self + BSpMM.FBF(BMM.BBF agg) [-> ReLU]."""
     KERNEL_CALLS["fused"] += 1
     if _on_card(h):
         return _launch(h, bn, w_agg, adj, w_s=w_self, relu=relu,
-                       item_ptr=item_ptr)
-    return branch_add_plain(h, bn, w_self, w_agg, adj, relu)
+                       item_ptr=item_ptr, halo=halo, rem=rem,
+                       halo_items=halo_items, bn_rcp=bn_rcp,
+                       form=_pair_form("branch_add", halo))
+    return branch_add_plain(h, bn, w_self, w_agg, adj, relu, halo, rem,
+                            bn_rcp)
 
 
-def fc(h: torch.Tensor, bn, w: BinTensor) -> torch.Tensor:
+def fc(h: torch.Tensor, bn, w: BinTensor, bn_rcp: bool = False
+       ) -> torch.Tensor:
     """BN -> quantize_act -> BMM.BBF."""
     KERNEL_CALLS["fused"] += 1
     if _on_card(h):
-        return _launch(h, bn, w, None)
-    return fc_plain(h, bn, w)
+        return _launch(h, bn, w, None, bn_rcp=bn_rcp,
+                       form="fc+rcp" if bn_rcp else None)
+    return fc_plain(h, bn, w, bn_rcp)
+
+
+def transform(h: torch.Tensor, bn, w: BinTensor, fbb: bool = False,
+              bn_rcp: bool = False) -> torch.Tensor:
+    """A fused layer's transform alone (the kernel with ``aggregate = 0``):
+    BMM.FBB sign words (``fbb``) or BMM.BBF rows. The sharded executors
+    exchange these rows, so that a remote row is the very row its owner's
+    fused launch computes for itself."""
+    if _on_card(h):
+        return _launch(h, bn, w, None, fbb=fbb, bn_rcp=bn_rcp,
+                       form="transform")
+    return transform_plain(h, bn, w, fbb, bn_rcp)

@@ -117,6 +117,40 @@ def _serve_bits_backend(adj: FRDCMatrix, x_packed: torch.Tensor,
                       trinary_mode=trinary_mode, block_shape=block_shape)
 
 
+# ---------------------------------------------------------------------------
+# Explicit serve aggregations of the sharded layer executors
+# ---------------------------------------------------------------------------
+# The 1D kernels on the card, their plain versions on the CPU, whatever a
+# ``serve_kernels`` context routes: the executors' stages call these
+# directly, as the reference's shard_map bodies do.
+
+def serve_fp(adj: FRDCMatrix, x: torch.Tensor) -> torch.Tensor:
+    """BSpMM.FBF for the layer executors: exact scaled fp aggregation."""
+    return bspmm_fp(adj, x)
+
+
+def serve_counts(adj: FRDCMatrix, x_packed: torch.Tensor,
+                 trinary_mode: str = "s3_two_popc") -> torch.Tensor:
+    """Raw trinary counts (n_rows, Wf*32) for the layer executors: the
+    integer partial sums of the distributed binary-aggregation layer, which
+    add exactly across the intra/halo split."""
+    return bspmm_bits(adj, x_packed, x_packed.shape[1] * 32, binarize=False,
+                      trinary_mode=trinary_mode)
+
+
+def serve_fp_pair(intra: FRDCMatrix, halo: FRDCMatrix, x_local: torch.Tensor,
+                  x_remote: torch.Tensor) -> torch.Tensor:
+    """Distributed FBF aggregation ``(intra_raw @ x_local + halo_raw @
+    x_remote) * row_scale``: each matrix's column scale folds into its own
+    operand, and the row scale the two share is applied once, after the
+    add (the reference's association, ``ops.serve_fp_pair``)."""
+    y = serve_fp(intra._replace(row_scale=None), x_local) \
+        + serve_fp(halo._replace(row_scale=None), x_remote)
+    if intra.row_scale is not None:
+        y = y * intra.row_scale[:, None].to(y.dtype)
+    return y
+
+
 @contextlib.contextmanager
 def serve_kernels(enabled: bool = True, block_shape=None):
     """Route the BSpMM aggregation stages of ``core.bspmm`` by the serving

@@ -436,6 +436,7 @@ class GraphStore:
         self.graphs: Dict[str, GraphEntry] = {}
         self.models: Dict[str, ModelEntry] = {}
         self._sessions: Dict[Tuple[str, str], CompiledGraphSession] = {}
+        self._sharded_sessions: Dict[tuple, object] = {}
 
     # -------------------------------------------------------- registry ----
     def register_graph(self, name: str, data: GraphData) -> GraphEntry:
@@ -511,4 +512,51 @@ class GraphStore:
             if sess_dir is not None:
                 sess.save(sess_dir)
         self._sessions[key] = sess
+        return sess
+
+    def sharded_session(self, graph: str, model: str, n_shards: int,
+                        tune: bool = False, tune_repeats: int = 2,
+                        executor: str = "host",
+                        bn_mode: str = "single_host"):
+        """Compile (or restore) a partitioned session serving ``graph``
+        from ``n_shards`` shards on the store's device. ``executor`` and
+        ``bn_mode`` select the distributed-pass implementation and the BN
+        calibration source; both are part of the cache key. See
+        :mod:`repro_torch.serve.sharded`."""
+        from .sharded import ShardedGraphSession, ShardPlanner
+        from .sharded.session import check_modes
+        check_modes(executor, bn_mode)
+        key = (graph, model, int(n_shards), executor, bn_mode)
+        if key in self._sharded_sessions:
+            return self._sharded_sessions[key]
+        g, m = self.graphs[graph], self.models[model]
+
+        sess = None
+        sess_dir = (self.cache_dir / f"{graph}__{model}__P{n_shards}"
+                    if self.cache_dir else None)
+        blk = self._plan_block(g)
+        if sess_dir is not None:
+            sess = ShardedGraphSession.load(
+                sess_dir, g, m, khop=self.khop, max_batch=self.max_batch,
+                use_pallas=self.use_pallas, executor=executor,
+                bn_mode=bn_mode, bspmm_block=blk, fused=self.fused,
+                device=self.device)
+        if sess is None:
+            qparams = session_core.quantize_family(
+                m.family, _params_on(m.params, self.device))
+            plan = (session_core.tune_plan(g.data, m.family, qparams,
+                                           repeats=tune_repeats,
+                                           device=self.device)
+                    if tune else session_core.default_plan(m.family))
+            plan = dataclasses.replace(plan, bspmm_block=blk,
+                                       fused=self.fused)
+            shard_plan = ShardPlanner(n_shards).plan(g.data, m.family)
+            sess = ShardedGraphSession(
+                g, m, plan, qparams, shard_plan, khop=self.khop,
+                max_batch=self.max_batch, use_pallas=self.use_pallas,
+                executor=executor, bn_mode=bn_mode, device=self.device)
+            sess.sync()
+            if sess_dir is not None:
+                sess.save(sess_dir)
+        self._sharded_sessions[key] = sess
         return sess

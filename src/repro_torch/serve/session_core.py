@@ -26,13 +26,14 @@ import hashlib
 import json
 import pathlib
 import zipfile
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..core import frdc, tuner
+from ..core import bitops, frdc, tuner
 from ..core.binarize import BinTensor
+from ..core.bmm import bmm, quantize_act
 from ..core.bspmm import TRINARY_DEFAULT
 from ..kernels import fused_layer
 from ..kernels import ops as kernel_ops
@@ -381,6 +382,194 @@ def dinv_for_family(family: str, degrees: np.ndarray) -> Optional[np.ndarray]:
     if family == "sage":
         return 1.0 / np.maximum(degrees.astype(np.float64), 1.0)
     return None
+
+
+# ---------------------------------------------------------------------------
+# Layer programs — the distributed full pass decomposed into executor steps
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LayerStep:
+    """One step of a family's distributed layer program.
+
+    A step runs per shard as: optional BN (site ``bn_site`` of the frozen
+    calibration, or distributed moments in calibrate mode) -> ``pre``
+    (dense per-shard transform giving the exchange operand and any aux
+    state ``post`` needs) -> halo exchange of the operand (packed int32
+    words when ``packed``) -> aggregation ``intra @ operand + halo @
+    exchanged`` over adjacency ``kind`` (trinary popc counts when
+    ``packed``: integer partial sums, exact across the split) -> ``post(aux,
+    y)``, the next carried state. ``kind=None`` steps skip the exchange and
+    the aggregation (SAINT's trailing FC).
+
+    The reference traces a step's body inside one ``fused_call`` for the
+    fused plans; CUDA replays no jaxpr, so each step also names its one-
+    launch form: ``fused(st, bn, rem, intra, halo, items)`` (a fused layer
+    kind with the halo pair, BN by the reciprocal) and ``transform(st,
+    bn)``, that kind's transform alone, which gives the exchange operand.
+
+    ``payload_cols``/``payload_itemsize``: the exchange operand's row width,
+    the wire-byte schedule of the step (``MeshHaloPlan.payload_bytes``).
+    """
+    name: str
+    kind: Optional[str]
+    packed: bool
+    bn_site: Optional[int]
+    pre: Callable
+    post: Callable
+    payload_cols: int = 0
+    payload_itemsize: int = 4
+    fused: Optional[Callable] = None
+    transform: Optional[Callable] = None
+
+    @property
+    def tag(self) -> str:
+        """Halo byte-accounting tag."""
+        return f"{self.name}/{'packed' if self.packed else 'fp'}"
+
+
+def binarize_counts(counts: torch.Tensor, n_feat: int) -> BinTensor:
+    """Sign-binarize summed trinary counts: the BSpMM.BBB output stage (unit
+    scales: positive scales are elided by the consumer)."""
+    counts = counts.to(torch.float32)
+    if counts.shape[-1] > n_feat:
+        counts = counts[:, :n_feat]
+    return BinTensor(packed=bitops.sign_bits(counts, axis=-1),
+                     scale=counts.new_ones((counts.shape[0], 1)), n=n_feat)
+
+
+def build_layer_program(plan: SessionPlan, q) -> Tuple[LayerStep, ...]:
+    """Decompose ``plan``'s family forward into executor layer steps.
+
+    Run per shard with the single-host BN constants, the program equals the
+    family's ``*_forward_bitgnn`` over the whole graph wherever the
+    aggregation split is exact (binary layers), and to fp reassociation
+    elsewhere."""
+    fam = plan.family
+    fl = fused_layer
+    mode = plan.trinary_mode
+    if fam == "gcn" and plan.scheme == "bin":
+        n_hidden = int(q.w1.packed.shape[0])
+        n_out = int(q.w2.packed.shape[0])
+
+        def pre1(z):
+            return bmm(z, q.w1, "FBB", out_scale=False).packed, None
+
+        def post1(aux, counts):
+            return binarize_counts(counts, n_hidden).packed
+
+        def pre2(st):
+            h1 = BinTensor(packed=st, scale=st.new_ones(
+                (st.shape[0], 1), dtype=torch.float32), n=n_hidden)
+            return bmm(h1, q.w2, "BBF"), None
+
+        return (
+            LayerStep("layer1", "bin", True, 0, pre1, post1,
+                      payload_cols=-(-n_hidden // 32),
+                      fused=lambda st, bn, rem, a, h, it: fl.gcn_bin_l1(
+                          st, bn, q.w1, a, mode, it[0], h, rem, it[1], True),
+                      transform=lambda st, bn: fl.transform(
+                          st, bn, q.w1, fbb=True, bn_rcp=True)),
+            LayerStep("layer2", "adj", False, None, pre2,
+                      lambda aux, y: y, payload_cols=n_out,
+                      fused=lambda st, bn, rem, a, h, it: fl.gcn_bbf_fbf(
+                          st, None, q.w2, a, False, it[0], h, rem, it[1]),
+                      transform=lambda st, bn: fl.transform(st, None, q.w2)),
+        )
+    if fam == "gcn":
+        def gcn_step(name, site, w, relu):
+            def pre(z):
+                return bmm(quantize_act(z), w, "BBF"), None
+            return LayerStep(
+                name, "adj", False, site, pre,
+                (lambda aux, y: torch.relu(y)) if relu else (lambda aux, y: y),
+                payload_cols=int(w.packed.shape[0]),
+                fused=lambda st, bn, rem, a, h, it: fl.gcn_bbf_fbf(
+                    st, bn, w, a, relu, it[0], h, rem, it[1], True),
+                transform=lambda st, bn: fl.transform(st, bn, w, bn_rcp=True))
+
+        return (gcn_step("layer1", 0, q.w1, True),
+                gcn_step("layer2", 1, q.w2, False))
+
+    # sage / saint: self + aggregated branch merged by ADD per layer
+    kind = "mean" if fam == "sage" else "sum"
+
+    def branch_step(name, site, w_self, w_agg, relu):
+        def pre(z):
+            xq = quantize_act(z)
+            return bmm(xq, w_agg, "BBF"), xq
+
+        def post(xq, agg):
+            h = bmm(xq, w_self, "BBF") + agg
+            return torch.relu(h) if relu else h
+
+        return LayerStep(
+            name, kind, False, site, pre, post,
+            payload_cols=int(w_agg.packed.shape[0]),
+            fused=lambda st, bn, rem, a, h, it: fl.branch_add(
+                st, bn, w_self, w_agg, a, relu, it[0], h, rem, it[1], True),
+            transform=lambda st, bn: fl.transform(st, bn, w_agg, bn_rcp=True))
+
+    steps = [branch_step("layer1", 0, q.w1_self, q.w1_agg, True),
+             branch_step("layer2", 1, q.w2_self, q.w2_agg, fam == "saint")]
+    if fam == "saint":
+        steps.append(LayerStep(
+            "fc", None, False, 2,
+            lambda z: (bmm(quantize_act(z), q.w_fc, "BBF"), None),
+            lambda aux, y: y,
+            fused=lambda st, bn, rem, a, h, it: fl.fc(st, bn, q.w_fc, True)))
+    return tuple(steps)
+
+
+def apply_bn(x: torch.Tensor, mu: torch.Tensor, sd: torch.Tensor
+             ) -> torch.Tensor:
+    """Frozen-stats batch norm in the layer executors' form, ``(x - mu) *
+    (1.0 / sd)``: the reference multiplies by the reciprocal there (a jitted
+    and an eager division round differently under XLA), where the
+    single-host forwards divide. Copied as it is."""
+    return (x - mu) * (1.0 / sd)
+
+
+# the eps of gnn.bn_stats, shared by the distributed calibrations
+BN_EPS = 1e-5
+
+
+def moments_from_sums(s1, s2, cnt, eps: float = BN_EPS) -> tuple:
+    """(mu, sd) from sum / sum-of-squares / count partials: the formula of
+    distributed BN calibration."""
+    mu = s1 / cnt
+    sd = torch.sqrt(torch.clamp(s2 / cnt - mu * mu, min=0.0)) + eps
+    return mu, sd
+
+
+def distributed_moments(blocks: List[torch.Tensor],
+                        eps: float = BN_EPS) -> tuple:
+    """Per-feature (mu, sd) over the GLOBAL node axis from per-shard row
+    blocks (sum and sum-of-squares partials added across shards)."""
+    cnt = float(sum(int(b.shape[0]) for b in blocks))
+    s1 = sum(b.sum(dim=0, keepdim=True) for b in blocks)
+    s2 = sum((b * b).sum(dim=0, keepdim=True) for b in blocks)
+    return moments_from_sums(s1, s2, cnt, eps)
+
+
+class LayerExecutor:
+    """Executes a layer program over per-shard feature blocks.
+
+    ``run_pass(program, xs, bn, calibrate=False)`` takes the per-shard
+    UNPADDED feature blocks and either the frozen BN tuple (site-indexed) or
+    ``calibrate=True`` to compute the stats from the pass itself; returns
+    ``(per-shard output blocks, collected stats or None)``. The port has
+    :class:`repro_torch.serve.sharded.executor.HostLayerExecutor`.
+    """
+    name = "?"
+
+    @property
+    def compile_count(self) -> int:
+        """Distinct layer programs the executor has run."""
+        return 0
+
+    def run_pass(self, program, xs, bn, calibrate: bool = False):
+        raise NotImplementedError
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """The port stands alone: nothing under src/repro_torch/, in chip_smoke.py
 or in the port's GPU tools (tools/*.py) imports JAX or the reference
-package, and chip_smoke.py refuses to run without a CUDA device or outside
-a checkout."""
+package, the port's entry points default to the card, and chip_smoke.py
+refuses to run without a CUDA device or outside a checkout."""
 import ast
 import os
 import shutil
@@ -38,13 +38,40 @@ def test_no_jax_or_reference_imports():
 
 def test_importing_the_port_loads_no_jax():
     pytest.importorskip("torch")
-    code = ("import sys, repro_torch.models.gnn, repro_torch.kernels.ops; "
+    code = ("import sys, repro_torch.models.gnn, repro_torch.kernels.ops, "
+            "repro_torch.serve.sharded, repro_torch.graphs.partition; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     r = subprocess.run([sys.executable, "-c", code], env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+def test_entry_points_default_to_the_card():
+    """The port's entry points that place tensors run on ``cuda`` unless
+    the caller asks for the CPU (the tests do)."""
+    pytest.importorskip("torch")
+    import inspect
+    import importlib
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        mods = {m: importlib.import_module(f"repro_torch.{m}") for m in (
+            "serve.gnn_session", "serve.sharded.session",
+            "serve.sharded.executor", "graphs.partition")}
+    finally:
+        sys.path.remove(str(ROOT / "src"))
+    entries = [
+        mods["serve.gnn_session"].GraphStore.__init__,
+        mods["serve.gnn_session"].CompiledGraphSession.__init__,
+        mods["serve.sharded.session"].ShardedGraphSession.__init__,
+        mods["serve.sharded.session"].ShardedGraphSession.load,
+        mods["serve.sharded.executor"].HostLayerExecutor.__init__,
+        mods["graphs.partition"].partition_rows,
+    ]
+    for fn in entries:
+        assert inspect.signature(fn).parameters["device"].default == "cuda", \
+            fn.__qualname__
 
 
 def test_chip_smoke_fails_without_card_or_checkout(tmp_path):
