@@ -140,6 +140,10 @@ WARMUP_PROBES = 16
 SHARDS = 4                 # the sharded phase's P, all on the one card
 ROUTED_BATCHES = 4         # routed serve batches of SERVE_BATCH seeds
 ROUTED_PROBES = 2          # warmup probes of the sharded session
+ENGINE_BATCHES = 8         # phase 11: batches of SERVE_BATCH per engine run
+ENGINE_PROBES = 4          # warmup probes of each engine run
+QPS_BATCHES = 4            # batches of each traced / untraced QPS run
+ROUTED_QUERIES = 128       # phase 12: queries to the sharded engine
 # the distributed passes: name -> (family, scheme, fused)
 SHARDED_WAYS = {"gcn_bin/unfused": ("gcn", "bin", False),
                 "gcn_bin/fused": ("gcn", "bin", True),
@@ -281,6 +285,19 @@ def bits_yardstick(torch, bitops, adj, x, n_feat, counts):
         raise AssertionError("bits yardstick: torch.sparse.mm differs from "
                              "the kernel's counts")
     return lambda: torch.sparse.mm(csr, pm1)
+
+
+def agree(what, got, want) -> None:
+    """The rule of phase 3 on host logits: rows allclose(rtol = atol =
+    1e-3) and predictions equal, each on at least 99.9% of rows."""
+    import numpy as np
+    close = float(np.isclose(got, want, rtol=1e-3, atol=1e-3)
+                  .all(axis=1).mean())
+    same = float((got.argmax(1) == want.argmax(1)).mean())
+    log(f"agree {what}: rows close {close:.6f}, predictions {same:.6f}, "
+        f"max |dlogit| {float(np.abs(got - want).max()):.3e}")
+    if close < ROWS_CLOSE_MIN or same < PRED_AGREE_MIN:
+        raise AssertionError(f"{what}: answers disagree")
 
 
 def run(torch) -> dict:
@@ -592,9 +609,15 @@ def run(torch) -> dict:
         for w in (1, 2, 4) for s2 in (0, 1)}))
     log("forward ms: " + json.dumps(forward_ms))
     log(f"phases 1-4: {time.perf_counter() - t_start:.1f} s")
-    serve_records, single, params = run_serve(torch, flickr)
+    serve_records, single, params, stores = run_serve(torch, flickr)
     records += serve_records
-    records += run_sharded(torch, flickr, single, params)
+    sharded_records, sharded_store = run_sharded(torch, flickr, single,
+                                                 params)
+    records += sharded_records
+    # the engine paths' launches join each kernel's count
+    engine_launches = run_engine(torch, flickr, stores, sharded_store, single)
+    for rec in records:
+        rec["launches"] += engine_launches.get(rec["name"], 0)
     return {"kernels": records}
 
 
@@ -737,7 +760,8 @@ def kernel_record(name, shape, launches, max_err, ms, plain_ms, lib_ms,
 def run_serve(torch, flickr) -> tuple:
     """Phases 5-7: the serving slice on full Flickr. Returns the kernel
     records of the 2D-grid and fused kernels, the single-host GCN "bin"
-    session of way (a) and the models' parameters."""
+    session of way (a), the models' parameters and the GCN stores of the
+    three ways."""
     import tempfile
     from functools import partial
 
@@ -780,8 +804,8 @@ def run_serve(torch, flickr) -> tuple:
         return st
 
     t0 = time.perf_counter()
-    sessions = {w: store("gcn", **kw).session("flickr", "gcn")
-                for w, kw in ways.items()}
+    stores = {w: store("gcn", **kw) for w, kw in ways.items()}
+    sessions = {w: st.session("flickr", "gcn") for w, st in stores.items()}
     for fam in ("sage", "saint"):
         sessions[fam] = store(fam, fused=True).session("flickr", fam)
     compiles = {}
@@ -987,15 +1011,6 @@ def run_serve(torch, flickr) -> tuple:
             f"extract {serve_split[name][0]:.3f} ms, launch + finish "
             f"{serve_split[name][1]:.3f} ms")
 
-    def agree(what, got, want):
-        close = float(np.isclose(got, want, rtol=1e-3, atol=1e-3)
-                      .all(axis=1).mean())
-        same = float((got.argmax(1) == want.argmax(1)).mean())
-        log(f"agree {what}: rows close {close:.6f}, predictions {same:.6f}, "
-            f"max |dlogit| {float(np.abs(got - want).max()):.3e}")
-        if close < ROWS_CLOSE_MIN or same < PRED_AGREE_MIN:
-            raise AssertionError(f"{what}: answers disagree")
-
     for name, sess in sessions.items():
         n_b = SERVE_BATCHES if name in ways else 2
         flat = seeds[:n_b].reshape(-1)
@@ -1148,7 +1163,7 @@ def run_serve(torch, flickr) -> tuple:
         + json.dumps(serve_split))
     log("full-graph forward ms (full_logits refresh): " + json.dumps(full_ms))
     log(f"phases 5-7: {time.perf_counter() - t_start:.1f} s")
-    return records, sess_a, params
+    return records, sess_a, params, stores
 
 
 def sharded_plan(session_core, family, scheme, fused):
@@ -1212,7 +1227,8 @@ def layer1_words(torch, sess_u, sess_f, tol):
 def run_sharded(torch, flickr, single, params) -> list:
     """Phases 8-10: sharded serving on full Flickr, SHARDS shards on the
     one card, executor="host". Returns the records of the fused layer's
-    sharded forms (rows 7e-7h)."""
+    sharded forms (rows 7e-7h) and the store of the routed GCN "bin"
+    session."""
     import tempfile
     from functools import partial
 
@@ -1291,15 +1307,6 @@ def run_sharded(torch, flickr, single, params) -> list:
     # -- 9. checks ----------------------------------------------------------
     t0 = time.perf_counter()
     x_dev = card(flickr.x)
-
-    def agree(what, got, want):
-        close = float(np.isclose(got, want, rtol=1e-3, atol=1e-3)
-                      .all(axis=1).mean())
-        same = float((got.argmax(1) == want.argmax(1)).mean())
-        log(f"agree {what}: rows close {close:.6f}, predictions {same:.6f}, "
-            f"max |dlogit| {float(np.abs(got - want).max()):.3e}")
-        if close < ROWS_CLOSE_MIN or same < PRED_AGREE_MIN:
-            raise AssertionError(f"{what}: answers disagree")
 
     # each distributed pass against the card's single-host full-graph
     # forward under the same frozen BN
@@ -1538,7 +1545,256 @@ def run_sharded(torch, flickr, single, params) -> list:
         {kind: device_ms(torch, call)
          for kind, (_, call, _, _, _, _) in specs.items()}))
     log(f"phases 8-10: {time.perf_counter() - t_start:.1f} s")
-    return records
+    return records, store
+
+
+def run_engine(torch, flickr, stores, sharded_store, single) -> dict:
+    """Phases 11-12: the node-query engines on full Flickr, on the GCN
+    stores of phase 6 and the sharded store of phase 8. Returns the kernel
+    launches of the engine paths by kernel name."""
+    import traceback
+
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (AdmissionController, GNNServeEngine,
+                                   ShardedServeEngine, TenantPolicy)
+
+    t_start = time.perf_counter()
+    n_fl = flickr.n_nodes
+    launches: dict = {}
+
+    def counted(path, expect, fn):
+        """Drive one engine path with the launch counts set to 0 just
+        before it and read just after; fail if a kernel of ``expect``
+        never launched."""
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        missing = [k for k in expect if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"{path}: kernels never launched: {missing}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        return out, counts
+
+    def stats(eng, d0):
+        snap = eng.snapshot()
+        return dict(qps=snap["qps"], p50_ms=snap["latency"]["p50_ms"],
+                    p99_ms=snap["latency"]["p99_ms"],
+                    extract_s=eng.metrics.extract_s,
+                    compute_s=eng.metrics.compute_s,
+                    overlap_ratio=snap["overlap_ratio"],
+                    batches=snap["batches"],
+                    dispatches=eng.dispatch_count - d0)
+
+    def drain(eng, nodes, **kw):
+        def go():
+            qs = eng.submit_many("flickr", "gcn", nodes, **kw)
+            eng.run_until_drained()
+            return qs
+        return go
+
+    # -- 11. the single-host engine on way (c)'s store ----------------------
+    st_c = stores["c"]
+    sess_c = st_c.session("flickr", "gcn")
+    nodes = np.random.default_rng(SEED + 5).integers(
+        0, n_fl, size=ENGINE_BATCHES * SERVE_BATCH)
+    runs = {"depth 0": dict(pipeline_depth=0),
+            "depth 1": dict(pipeline_depth=1),
+            "depth 2": dict(pipeline_depth=2),
+            "depth 2 multi_bucket": dict(pipeline_depth=2, multi_bucket=True)}
+    results = {}
+    for name, kw in runs.items():
+        eng = GNNServeEngine(st_c, max_batch=SERVE_BATCH, mode="subgraph",
+                             **kw)
+        eng.warmup("flickr", "gcn", probes=ENGINE_PROBES)
+        d0 = eng.dispatch_count
+        qs, counts = counted(f"engine {name}", ("fused_layer",),
+                             drain(eng, nodes))
+        eng.close()
+        if not all(q.done for q in qs):
+            raise AssertionError(f"engine {name}: queries unanswered")
+        n_b = eng.metrics.batches
+        others = {k: v for k, v in counts.items() if k != "fused_layer" and v}
+        if counts["fused_layer"] != 2 * n_b or others:
+            raise AssertionError(f"engine {name}: launched {counts} for "
+                                 f"{n_b} batches, want 2 fused a batch")
+        # warmup launches single batches, so with multi_bucket a co-launch
+        # of K = 2..depth batches of the one steady bucket is a composition
+        # it skipped, and a new program after it (the reference's jit
+        # traces it there too); without, none may appear
+        steady = [e.attrs["shape"] for e in eng.tracer.warning_events()
+                  if e.name == "recompile"]
+        wd = eng.recompile_watchdog.steady_recompiles
+        skipped = kw["pipeline_depth"] - 1 if kw.get("multi_bucket") else 0
+        if wd != len(steady) or any("multi" not in sh for sh in steady) \
+                or wd > skipped:
+            raise AssertionError(f"engine {name}: steady-state programs "
+                                 f"{steady}")
+        results[name] = dict(qs=qs, logits=np.stack([q.logits for q in qs]),
+                             log=[[q.qid for q in b] for b in eng.batch_log],
+                             stats=dict(stats(eng, d0),
+                                        steady_new_programs=wd))
+        log(f"engine {name}: " + json.dumps(results[name]["stats"]))
+    base = results["depth 0"]
+    for name, r in results.items():
+        if r["log"] != base["log"] \
+                or not np.array_equal(r["logits"], base["logits"]):
+            raise AssertionError(f"engine {name}: batches or answers differ "
+                                 f"from the serial engine's")
+    by_qid = {q.qid: q for q in base["qs"]}
+    for batch in base["log"]:
+        seeds = np.asarray([by_qid[i].node for i in batch])
+        if not np.array_equal(np.stack([by_qid[i].logits for i in batch]),
+                              sess_c.serve_subgraph(seeds)):
+            raise AssertionError("engine answers differ from way (c)'s "
+                                 "serve_subgraph on the same batch")
+    agree("engine vs the card's full-graph forward", base["logits"],
+          sess_c.full_logits()[nodes])
+    multi = results["depth 2 multi_bucket"]["stats"]
+    if not multi["dispatches"] < multi["batches"]:
+        raise AssertionError(f"multi_bucket: {multi['dispatches']} "
+                             f"dispatches for {multi['batches']} batches")
+    log(f"engine: {len(runs)} runs of {nodes.size} queries, batch_log and "
+        f"answers identical, bit-equal to way (c)'s serve_subgraph on "
+        f"{len(base['log'])} replayed batches; "
+        f"{time.perf_counter() - t_start:.1f} s")
+
+    # one depth-1 drain on way (a)'s store with the launch stage inside
+    # the transfer watchdog's strict guard (CUDA sync debug mode "error")
+    class Guarded(GNNServeEngine):
+        def _launch_stage(self, inf):
+            with self.transfer_watchdog.strict_guard():
+                super()._launch_stage(inf)
+
+    t0 = time.perf_counter()
+    guarded = Guarded(stores["a"], max_batch=SERVE_BATCH, mode="subgraph",
+                      pipeline_depth=1, max_retries=1, retry_backoff_s=0.0)
+    guarded.warmup("flickr", "gcn", probes=ENGINE_PROBES)
+    errors = []
+
+    def sync_error(text):
+        # the error torch's sync debug mode raises, and nothing else
+        return "synchroniz" in text
+
+    def guarded_drain():
+        qs = guarded.submit_many("flickr", "gcn", nodes)
+        for _ in range(4 * ENGINE_BATCHES):
+            try:
+                guarded.run_until_drained()
+                break
+            except RuntimeError as e:
+                if not sync_error(str(e)):
+                    raise
+                errors.append("".join(traceback.format_exception(e)[-4:]))
+        return qs
+
+    qs, counts = counted("guarded engine (a)", (), guarded_drain)
+    guarded.close()
+    answered = [q for q in qs if q.done]
+    lost = [q.qid for q in qs if not q.done and not (
+        q.failed and sync_error(q.failure.error))]
+    if lost:
+        raise AssertionError(f"guarded engine (a): {len(lost)} queries "
+                             f"neither answered nor failed by the guard")
+    if answered and [k for k in FORWARD_KERNELS if counts[k] == 0]:
+        raise AssertionError(f"guarded engine (a): launched {counts}")
+    if answered:
+        agree("guarded engine (a) vs the card's full-graph forward",
+              np.stack([q.logits for q in answered]),
+              single.full_logits()[[q.node for q in answered]])
+    log(f"strict guard, depth 1 on way (a): watchdog "
+        + json.dumps(guarded.transfer_watchdog.snapshot())
+        + f"; {len(answered)} answered, "
+        f"{sum(q.failed for q in qs)} failed, {len(errors)} guard errors; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if errors:
+        log("strict guard, first error:\n" + errors[0])
+
+    # traced against untraced QPS at depth 1, best of 3 each (not gated)
+    t0 = time.perf_counter()
+    qps = {"traced": [], "untraced": []}
+    for _ in range(3):
+        for name, trace in (("traced", True), ("untraced", False)):
+            eng = GNNServeEngine(st_c, max_batch=SERVE_BATCH,
+                                 mode="subgraph", pipeline_depth=1,
+                                 trace=trace)
+            drain(eng, nodes[:QPS_BATCHES * SERVE_BATCH])()
+            eng.close()
+            qps[name].append(eng.metrics.qps)
+    log("tracing overhead, depth 1, QPS best of 3: " + json.dumps(
+        dict(traced=max(qps["traced"]), untraced=max(qps["untraced"]),
+             ratio=max(qps["traced"]) / max(qps["untraced"]), runs=qps))
+        + f"; {time.perf_counter() - t0:.1f} s")
+
+    # a full-cache multi-tenant run: a rate-limited hog beside gold
+    t0 = time.perf_counter()
+    adm = AdmissionController(policies={
+        "hog": TenantPolicy(rate_qps=2000.0, burst=96, max_queue_depth=64),
+        "gold": TenantPolicy(weight=4)})
+    eng = GNNServeEngine(st_c, max_batch=SERVE_BATCH, mode="full",
+                         admission=adm)
+    eng.warmup("flickr", "gcn")
+    rng = np.random.default_rng(SEED + 7)
+    qs = []
+    for _ in range(8):
+        qs += eng.submit_many("flickr", "gcn", rng.integers(0, n_fl, 96),
+                              tenant="hog")
+        qs += eng.submit_many("flickr", "gcn", rng.integers(0, n_fl, 16),
+                              tenant="gold")
+        eng.tick()
+        eng.tick()
+    eng.run_until_drained()
+    done = [q for q in qs if q.done]
+    if not all(q.done or q.rejected for q in qs) or not np.array_equal(
+            np.stack([q.logits for q in done]),
+            sess_c.full_logits()[[q.node for q in done]]):
+        raise AssertionError("multi-tenant run: answers differ from "
+                             "full_logits()")
+    tenants = eng.snapshot()["tenants"]
+    log("multi-tenant full cache: " + json.dumps({
+        t: dict(accepted=v["accepted"], throttled=v["throttled"],
+                shed=v["shed"], p99_ms=v["latency"]["p99_ms"])
+        for t, v in tenants.items()})
+        + f"; {time.perf_counter() - t0:.1f} s")
+
+    # -- 12. the sharded engine on the routed GCN "bin" session ------------
+    t0 = time.perf_counter()
+    sess_r = sharded_store.sharded_session("flickr", "gcn", SHARDS)
+    sharded = ShardedServeEngine(sharded_store, n_shards=SHARDS,
+                                 max_batch=SERVE_BATCH, pipeline_depth=1)
+    sharded.warmup("flickr", "gcn", probes=ROUTED_PROBES)
+    programs = sess_r.compile_count_by_shard
+    d0 = sharded.dispatch_count
+    r_nodes = np.random.default_rng(SEED + 6).integers(0, n_fl,
+                                                       size=ROUTED_QUERIES)
+    qs, counts = counted("sharded engine", FORWARD_KERNELS,
+                         drain(sharded, r_nodes))
+    sharded.close()
+    if not all(q.done for q in qs):
+        raise AssertionError("sharded engine: queries unanswered")
+    for batch in sharded.batch_log:
+        seeds = np.asarray([q.node for q in batch])
+        if np.unique(sess_r.routing.owner(seeds)).size != 1 \
+                or not np.array_equal(np.stack([q.logits for q in batch]),
+                                      single.serve_subgraph(seeds)):
+            raise AssertionError("sharded engine: a batch is not one owner "
+                                 "group bit-exact against way (a)")
+    if sess_r.compile_count_by_shard != programs \
+            or sharded.recompile_watchdog.steady_recompiles:
+        raise AssertionError(f"sharded engine: programs {programs} -> "
+                             f"{sess_r.compile_count_by_shard} after warmup")
+    snap = sharded.snapshot()
+    log("sharded engine: " + json.dumps(dict(
+        stats(sharded, d0), halo_tiles_shared=snap["halo_tiles_shared"],
+        halo_bytes_saved=snap["halo_bytes_saved"],
+        compiles_by_shard=snap["compiles_by_shard"],
+        routed_p50_ms=snap["latency"]["p50_ms"], launches=counts))
+        + f"; {len(sharded.batch_log)} batches bit-exact against way (a) "
+        f"per owner group; {time.perf_counter() - t0:.1f} s")
+    log(f"phases 11-12: {time.perf_counter() - t_start:.1f} s")
+    return launches
 
 
 def main() -> int:

@@ -6,12 +6,13 @@ launch/finish, trace hooks) is family-agnostic;
 what a model family computes lives behind a :class:`ModelFamilyAdapter`:
 ``quantize``, ``serve_body`` (the launched forward), ``pad_operands``
 (bucket shaping), ``sub_operands`` / ``operand_like`` (per-query operands
-and the artifact template), ``finish`` and ``trace_shape``. The token
+and the artifact template), ``finish`` and ``trace_shape`` (and
+``trace_shape_many`` of a co-launched bucket set). The token
 adapter comes with the token tier.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Dict, List
 
 import numpy as np
 
@@ -60,6 +61,14 @@ class ModelFamilyAdapter:
     def trace_shape(self, staged) -> dict:
         """Shape key of one staged batch (the program-counter key)."""
         raise NotImplementedError
+
+    def trace_shape_many(self, stageds: List) -> dict:
+        """Shape key of a co-launched bucket set."""
+        shapes = [self.trace_shape(s) for s in stageds]
+        out: Dict[str, Any] = dict(multi=len(stageds))
+        for k in (shapes[0] if shapes else {}):
+            out[k] = [s[k] for s in shapes]
+        return out
 
 
 class GNNAdapter(ModelFamilyAdapter):

@@ -248,6 +248,11 @@ class CompiledGraphSession:
         """Distinct padded shapes the bucketed subgraph forward has run."""
         return self.core.compile_count
 
+    @property
+    def dispatch_count(self) -> int:
+        """Launches issued (a multi-bucket co-launch counts 1)."""
+        return self.core.n_dispatches
+
     def set_trace_hook(self, cb) -> None:
         """Wire ``cb(label, shape_dict)`` to fire on every NEW padded shape
         of this session's serve core. ``None`` unwires."""
@@ -272,10 +277,12 @@ class CompiledGraphSession:
         return ex.sub_nodes, mats, ex.seed_pos
 
     def prepare_batch(self, seeds: np.ndarray) -> session_core.PreparedBatch:
-        """EXTRACT stage: adopt current features, k-hop extract, build the
-        subgraph FRDC and bucket-pad: host work producing the launch-ready
-        :class:`~repro_torch.serve.session_core.PreparedBatch`."""
-        self.sync()
+        """EXTRACT stage: k-hop extract, build the subgraph FRDC and
+        bucket-pad: host work only, producing the launch-ready
+        :class:`~repro_torch.serve.session_core.PreparedBatch`. It does not
+        adopt new features (that is card work): the caller runs
+        :meth:`sync` first, as :meth:`serve_subgraph` and the engine's pick
+        on the main thread do."""
         seeds = np.asarray(seeds, np.int64)
         uniq, inverse = np.unique(seeds, return_inverse=True)
         sub_nodes, mats, seed_pos = self._extract(uniq)
@@ -306,6 +313,7 @@ class CompiledGraphSession:
         """Micro-batched node-level inference: k-hop extraction -> bucket
         padding -> forward -> (len(seeds), n_out) logits, through the same
         prepare/launch/finish stages a pipelined engine drives."""
+        self.sync()
         prepared = self.prepare_batch(seeds)
         return self.finish_batch(prepared, self.launch_batch(prepared))
 

@@ -9,7 +9,8 @@
   HIGH-WATER pow2 shape buckets and the program counter: PyTorch runs
   eagerly, so where the reference counts jit traces the core counts each
   new padded shape key (``compile_count``), the zero-steady-state-recompile
-  verification counter;
+  verification counter, and one dispatch per ``launch`` / ``launch_many``
+  call (``n_dispatches``);
 * subgraph FRDC construction carrying FULL-graph factorization vectors, so
   a k-hop forward reproduces the full-graph computation for the seed rows;
 * FRDC and parameter (de)serialization in the reference's artifact format.
@@ -610,6 +611,10 @@ class ServeCore:
         self.on_trace = None
         self._n_water = 0
         self._g_water: Dict[Tuple[int, str], int] = {}
+        # launch / launch_many calls (a launch_many of K buckets counts 1):
+        # the launches-per-tick metric, counted as the reference counts
+        # its device dispatches
+        self.n_dispatches = 0
 
     @property
     def compile_count(self) -> int:
@@ -660,10 +665,30 @@ class ServeCore:
         the caller can overlap the next batch's extraction with it."""
         shape = self.adapter.trace_shape(staged)
         new = self._new_program(shape)
+        self.n_dispatches += 1
         out = self._serve_one(staged, bn)
         if new and self.on_trace is not None:
             self.on_trace(shape)
         return out
+
+    def launch_many(self, entries: List[Tuple["StagedBatch", tuple]]
+                    ) -> List[torch.Tensor]:
+        """Launch SEVERAL staged buckets as one program: ``entries`` are
+        (staged, bn) pairs, each bucket under its own captured calibration.
+        The K forwards go out back to back on the stream, each the same
+        calls :meth:`launch` makes, so the outputs are bit-equal to K
+        serial launches. Counted as ONE dispatch, and as one new program
+        per new (K, shapes) composition, the reference's jit cache key."""
+        if len(entries) == 1:
+            staged, bn = entries[0]
+            return [self.launch(staged, bn)]
+        shape = self.adapter.trace_shape_many([s for s, _ in entries])
+        new = self._new_program(shape)
+        self.n_dispatches += 1
+        outs = [self._serve_one(s, bn) for s, bn in entries]
+        if new and self.on_trace is not None:
+            self.on_trace(shape)
+        return outs
 
     def finish(self, out_dev: torch.Tensor, staged: "StagedBatch"
                ) -> np.ndarray:
@@ -744,6 +769,28 @@ class PreparedBatch:
             out = np.zeros((self.n_uniq,) + tuple(self.out_shape),
                            np.float32)
         return out[self.inverse]
+
+
+def launch_prepared_many(prepared: List[PreparedBatch]
+                         ) -> List[List[torch.Tensor]]:
+    """Co-launch several prepared batches: every staged group is bucketed
+    by its owning :class:`ServeCore` and each core issues ONE
+    :meth:`ServeCore.launch_many` for its whole share. Returns the
+    per-batch handle lists in exactly the order ``[p.launch() for p in
+    prepared]`` would, each handle bit-equal to what the serial launches
+    give. Groups keep their batch's CAPTURED ``bn``."""
+    by_core: Dict[int, Tuple[ServeCore, list]] = {}
+    slots: List[List[Optional[torch.Tensor]]] = []
+    for bi, p in enumerate(prepared):
+        slots.append([None] * len(p.groups))
+        for gi, g in enumerate(p.groups):
+            _, entries = by_core.setdefault(id(g.core), (g.core, []))
+            entries.append((g.staged, p.bn, bi, gi))
+    for core, entries in by_core.values():
+        outs = core.launch_many([(s, bn) for s, bn, _, _ in entries])
+        for (_, _, bi, gi), dv in zip(entries, outs):
+            slots[bi][gi] = dv
+    return slots
 
 
 # ---------------------------------------------------------------------------

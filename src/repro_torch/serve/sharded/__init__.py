@@ -10,10 +10,13 @@ sessions with cross-shard k-hop routing and halo exchange.
 ``executor`` — the host layer executor of the distributed full pass.
 ``session``  — ShardedGraphSession: per-shard bucketed serve cores +
                distributed layer-wise full pass + checkpointer artifacts.
+``engine``   — ShardedServeEngine: the micro-batching scheduler routed over
+               partitioned sessions (halo-aware batch formation).
 
-The SPMD executor, the ring transport over cards and the sharded engine
-wait for later slices (ROADMAP Queue 1 items 4 and 5).
+The SPMD executor and the ring transport over cards wait for the
+multi-card slice (ROADMAP Queue 1 item 5).
 """
+from .engine import ShardedServeEngine
 from .executor import HostLayerExecutor
 from .halo import HaloStats, MeshHaloPlan, build_mesh_plan, gather_rows
 from .planner import ShardPart, ShardPlan, ShardPlanner, SpmdPlan
@@ -21,7 +24,7 @@ from .routing import RoutingTable, ShardedCSR
 from .session import ShardedGraphSession
 
 __all__ = [
-    "ShardedGraphSession", "ShardPlanner", "ShardPlan", "ShardPart",
-    "SpmdPlan", "RoutingTable", "ShardedCSR", "HaloStats", "MeshHaloPlan",
-    "gather_rows", "build_mesh_plan", "HostLayerExecutor",
+    "ShardedServeEngine", "ShardedGraphSession", "ShardPlanner", "ShardPlan",
+    "ShardPart", "SpmdPlan", "RoutingTable", "ShardedCSR", "HaloStats",
+    "MeshHaloPlan", "gather_rows", "build_mesh_plan", "HostLayerExecutor",
 ]

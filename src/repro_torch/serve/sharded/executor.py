@@ -86,6 +86,11 @@ class HostLayerExecutor(LayerExecutor):
         self.device = torch.device(device)
         self.fused = plan.fused and use_pallas
         self._programs: set = set()
+        # observability hook: on_trace(label, shape_dict) on each NEW layer
+        # program, labelled "{name}/operand{i}" and "{name}/stage{i}" in the
+        # order the reference traces them (the SPMD executor's
+        # "{name}/step{i}" comes with it)
+        self.on_trace = None
         npd, nhp = spmd.n_local_pad, spmd.n_halo_pad
         self._intra: Dict[str, List[frdc.FRDCMatrix]] = {}
         self._halo: Dict[str, List[frdc.FRDCMatrix]] = {}
@@ -169,12 +174,16 @@ class HostLayerExecutor(LayerExecutor):
                 else:
                     site = bn[step.bn_site]
                 bn_args = tuple(t.to(self.device) for t in site)
-            self._programs.add(("stage", i, with_bn))
             if step.kind is None:
+                self._program(("stage", i, with_bn), f"stage{i}",
+                              self._stage_shape(with_bn))
                 state = [layer_compute(step, trinary, s, bn_args, None, None,
                                        None, self.fused) for s in state]
                 continue
-            self._programs.add(("operand", i, with_bn))
+            self._program(("operand", i, with_bn), f"operand{i}",
+                          dict(with_bn=with_bn))
+            self._program(("stage", i, with_bn), f"stage{i}",
+                          self._stage_shape(with_bn))
             operands = [self._operand(step, s, bn_args)[:p.n_local]
                         for s, p in zip(state, self.parts)]
             halo_in = self._exchange(operands, step.tag)
@@ -187,6 +196,18 @@ class HostLayerExecutor(LayerExecutor):
         blocks = [s[:p.n_local].cpu().numpy()
                   for s, p in zip(state, self.parts)]
         return blocks, (tuple(collected) if calibrate else None)
+
+    def _program(self, key: tuple, label: str, shape: dict) -> None:
+        """Count a layer program; fire ``on_trace`` when it is new."""
+        if key in self._programs:
+            return
+        self._programs.add(key)
+        if self.on_trace is not None:
+            self.on_trace(f"{self.name}/{label}", shape)
+
+    def _stage_shape(self, with_bn: bool) -> dict:
+        return dict(n_local_pad=self.spmd.n_local_pad,
+                    n_halo_pad=self.spmd.n_halo_pad, with_bn=with_bn)
 
     def _operand(self, step: LayerStep, st, bn_args):
         """The exchange operand of one shard: BN and ``step.pre``, or the

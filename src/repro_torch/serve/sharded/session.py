@@ -118,6 +118,9 @@ class ShardedGraphSession:
                                 use_pallas=use_pallas, adapter=self.adapter,
                                 device=self.device)
                       for _ in range(shard_plan.n_shards)]
+        # observability callback cb(label, shape_dict), fanned out to every
+        # per-shard core and (on build) the layer executor
+        self._trace_hook = None
 
     # ------------------------------------------------------------ state ----
     @property
@@ -136,6 +139,12 @@ class ShardedGraphSession:
     @property
     def compile_count_by_shard(self) -> List[int]:
         return [c.compile_count for c in self.cores]
+
+    @property
+    def dispatch_count(self) -> int:
+        """Launches across the per-shard serve cores (a multi-bucket
+        co-launch counts 1 per participating core)."""
+        return sum(c.n_dispatches for c in self.cores)
 
     @property
     def invalidations(self) -> int:
@@ -159,7 +168,30 @@ class ShardedGraphSession:
                 self.parts, self.shard_plan.spmd_plan(), self.plan,
                 self.halo_stats, self.routing, use_pallas=self.use_pallas,
                 device=self.device)
+            self._wire_executor_hook()
         return self._executor_obj
+
+    def set_trace_hook(self, cb) -> None:
+        """Wire ``cb(label, shape_dict)`` to fire on every NEW program of
+        any per-shard serve core (``shard<i>/core``) or of the layer
+        executor (``executor/host/stage<i>`` and ``.../operand<i>``).
+        ``None`` unwires. An executor built later inherits the hook."""
+        self._trace_hook = cb
+        for i, core in enumerate(self.cores):
+            if cb is None:
+                core.on_trace = None
+            else:
+                core.on_trace = (lambda shape, _i=i:
+                                 cb(f"shard{_i}/core", shape))
+        self._wire_executor_hook()
+
+    def _wire_executor_hook(self) -> None:
+        if self._executor_obj is None:
+            return
+        cb = self._trace_hook
+        self._executor_obj.on_trace = (
+            None if cb is None
+            else (lambda label, shape: cb(f"executor/{label}", shape)))
 
     @property
     def executor_compile_count(self) -> int:
@@ -244,9 +276,11 @@ class ShardedGraphSession:
 
     def prepare_batch(self, seeds: np.ndarray) -> session_core.PreparedBatch:
         """EXTRACT stage: routed k-hop extraction, halo feature fetch and
-        bucket padding for every owner group in the batch: host work (the
-        ``serve/x`` halo bytes are counted here, where the gather is)."""
-        self.sync()
+        bucket padding for every owner group in the batch: host work only
+        (the ``serve/x`` halo bytes are counted here, where the gather is).
+        It does not adopt new features (the distributed pass is card work):
+        the caller runs :meth:`sync` first, as :meth:`serve_subgraph` and
+        the engine's pick on the main thread do."""
         seeds = np.asarray(seeds, np.int64)
         uniq, inverse = np.unique(seeds, return_inverse=True)
         owners = self.routing.owner(uniq)
@@ -279,6 +313,7 @@ class ShardedGraphSession:
         """Node-level inference across shards: group the batch by owning
         shard, answer each group on its owner, merge back into request
         order, through the prepare/launch/finish stages."""
+        self.sync()
         prepared = self.prepare_batch(seeds)
         return self.finish_batch(prepared, self.launch_batch(prepared))
 
