@@ -85,6 +85,31 @@ result):
    of the fused layer (rows 7e-7h) at shard 0's padded shapes against its
    plain version (sign words bit-exact, fp within FP_TOL of the sum of
    |terms|), with its bound, on events and device time.
+11-12. engines (see ``run_engine``).
+13. training — full Flickr at hidden 64, weights from a seeded numpy
+   generator, the adjacencies sparse (``gnn.sparse_adjacency``: CSR and
+   its transpose), fp32 products (``run`` sets TF32 off; the phase holds
+   the first layer's product on 4,096 rows against float64 on the host
+   within TF32_CHECK of its scale, which a TF32 product misses by ~2e-4):
+   fp32 GCN (150 epochs, lr 1e-2),
+   Bi-GCN GCN, STE "bin" GCN and Bi-GCN SAGE (300 epochs, lr 3e-2) trained
+   on the card with ``train_node_classifier``; their weights quantized and
+   run through the packed forwards (Ours(full), Ours(bin), SAGE Ours) on
+   the kernels, each held against the same forward on the CPU by the rule
+   of phase 3, every kernel of the path launched; Ours(full)'s logits
+   within rtol = atol = 2e-2 of the Bi-GCN forward's on the card (the
+   reference's ``tests/test_gnn.py`` bound, which holds whether or not the
+   model learned); the accuracy table, with Ours(full) within 0.04 of
+   Bi-GCN, Ours(bin) at least STE "bin" - 0.05
+   and SAGE Ours at least SAGE Bi-GCN - 0.06; the trained "bin" GCN served
+   from ``GraphStore(max_batch=32, khop=2, use_pallas=True, fused=True)``
+   for 4 batches of 32 seeded seeds, held against the card's full-graph
+   forward, fused launches only, no new program after warmup; then the
+   five backends of Tables 3-5 on the trained GCN weights as
+   ``benchmarks/bench_gnn_tables.py`` composes them (FP32(S) scatter,
+   FP32(T) and Bi-GCN on the sparse adjacency, Ours(full), Ours(bin)) and
+   SAGE's three: median ms (CUDA events), peak memory over the forward,
+   speedup against the first row.
 
 Output: a JSON line with one record per kernel, the card's name and power
 limit from nvidia-smi, and last the line
@@ -109,6 +134,8 @@ FP32_OPS_PER_S = 67e12       # float32 outside the tensor cores
 FP_TOL, FP_TOL_ABS = 1e-5, 1e-6   # bspmm_fp vs plain, see hold()
 ROWS_CLOSE_MIN = 0.999
 PRED_AGREE_MIN = 0.999
+TF32_CHECK = 1e-5          # phase 13: fp32 product vs float64, of max |ref|
+FULL_VS_BIGCN = 2e-2       # phase 13: Ours(full) vs Bi-GCN logits, rtol=atol
 REPLACES = {
     "binarize_pack": ("src/repro_torch/csrc/pack.cu",
                       "src/repro/kernels/pack_kernel.py:27"),
@@ -144,6 +171,14 @@ ENGINE_BATCHES = 8         # phase 11: batches of SERVE_BATCH per engine run
 ENGINE_PROBES = 4          # warmup probes of each engine run
 QPS_BATCHES = 4            # batches of each traced / untraced QPS run
 ROUTED_QUERIES = 128       # phase 12: queries to the sharded engine
+TRAIN_BATCHES = 4          # phase 13: served batches on trained weights
+# phase 13: model -> (training forward, family, adjacency kinds, epochs, lr),
+# the recipes of benchmarks/accuracy_experiment.py
+TRAIN = {"FP32": ("gcn_forward_fp", "gcn", ("gcn",), 150, 1e-2),
+         "Bi-GCN": ("gcn_forward_bigcn", "gcn", ("gcn",), 300, 3e-2),
+         "STE-bin": ("gcn_forward_ste_bin", "gcn", ("binary", "gcn"), 300,
+                     3e-2),
+         "SAGE Bi-GCN": ("sage_forward_bigcn", "sage", ("mean",), 300, 3e-2)}
 # the distributed passes: name -> (family, scheme, fused)
 SHARDED_WAYS = {"gcn_bin/unfused": ("gcn", "bin", False),
                 "gcn_bin/fused": ("gcn", "bin", True),
@@ -257,19 +292,14 @@ def group_bytes(adj) -> int:
 
 def frdc_csr(torch, adj):
     """The 0/1 pattern of an FRDC matrix as a CSR tensor of float32 ones on
-    its device, (n_tile_rows * 4, n_cols), decoded from the tiles of its
-    real groups: ``torch.sparse.mm`` of it with +-1 features as float32
-    gives the bits kernels' trinary counts (integers below 2^24, exact)."""
-    tiles = adj.tiles[:real_groups(adj)]
-    gi, ti = torch.nonzero(tiles, as_tuple=True)
-    t = tiles[gi, ti]
-    rows, cols = [], []
-    for i in range(4):
-        for j in range(4):
-            hit = ((t >> (4 * i + j)) & 1).bool()
-            rows.append(adj.group_row[gi[hit]].long() * 4 + i)
-            cols.append(adj.col_idx[gi[hit], ti[hit]].long() * 4 + j)
-    idx = torch.stack([torch.cat(rows), torch.cat(cols)])
+    its device, (n_tile_rows * 4, n_cols), decoded by
+    ``frdc.nonzero_coords``: ``torch.sparse.mm`` of it with +-1 features
+    as float32 gives the bits kernels' trinary counts (integers below
+    2^24, exact)."""
+    import numpy as np
+    from repro_torch.core import frdc
+    rows, cols = frdc.nonzero_coords(adj)
+    idx = torch.from_numpy(np.stack([rows, cols])).to(adj.device)
     return torch.sparse_coo_tensor(
         idx, torch.ones(idx.shape[1], device=idx.device),
         (adj.n_tile_rows * 4, adj.n_cols)).coalesce().to_sparse_csr()
@@ -616,8 +646,10 @@ def run(torch) -> dict:
     records += sharded_records
     # the engine paths' launches join each kernel's count
     engine_launches = run_engine(torch, flickr, stores, sharded_store, single)
+    train_launches = run_train(torch, flickr, adjs["flickr"])
     for rec in records:
-        rec["launches"] += engine_launches.get(rec["name"], 0)
+        rec["launches"] += engine_launches.get(rec["name"], 0) \
+            + train_launches.get(rec["name"], 0)
     return {"kernels": records}
 
 
@@ -1794,6 +1826,214 @@ def run_engine(torch, flickr, stores, sharded_store, single) -> dict:
         + f"; {len(sharded.batch_log)} batches bit-exact against way (a) "
         f"per owner group; {time.perf_counter() - t0:.1f} s")
     log(f"phases 11-12: {time.perf_counter() - t_start:.1f} s")
+    return launches
+
+
+def run_train(torch, flickr, adjs) -> dict:
+    """Phase 13: train on full Flickr on the card, run the trained weights
+    through the packed forwards and the fused serving path, and time the
+    backends of Tables 3-5. ``adjs``: the FRDC adjacencies of phase 1 on
+    the card. Returns the kernel launches of the trained forwards and the
+    served batches by kernel name."""
+    import math
+
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.models import gnn
+    from repro_torch.serve import GraphStore
+
+    dev = DEVICE
+    t_start = time.perf_counter()
+    n_fl, f_fl = flickr.x.shape
+    n_cls = flickr.n_classes
+    x = torch.from_numpy(flickr.x).to(dev)
+    # the precision the training and the Bi-GCN baseline multiply at: the
+    # first layer's product on the card against float64 on the host, with
+    # TF32 as set (off) and, for scale, on
+    a = x[:4096]
+    w1 = gnn.init_gcn(SEED, f_fl, HIDDEN, n_cls, dev).w1
+    want = a.cpu().double() @ w1.cpu().double()
+    err = {}
+    for tf32 in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        err[tf32] = float((a @ w1).cpu().double().sub(want).abs().max()
+                          / want.abs().max())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"phase 13 fp32 product vs float64: max |err| / max |ref| "
+        f"{err[False]:.3e} (TF32 on: {err[True]:.3e}), limit {TF32_CHECK}")
+    if err[False] > TF32_CHECK:
+        raise AssertionError("phase 13: the card's fp32 product is not fp32")
+    y = torch.from_numpy(flickr.y).long().to(dev)
+    train_mask = torch.from_numpy(flickr.train_mask).to(dev)
+    test_mask = torch.from_numpy(flickr.test_mask).to(dev)
+    sparse = {k: gnn.sparse_adjacency(adjs[k])
+              for k in ("gcn", "binary", "mean")}
+    log(f"phase 13 sparse adjacencies: {time.perf_counter() - t_start:.1f} "
+        f"s; nnz " + json.dumps({k: int(a.csr.values().numel())
+                                 for k, a in sparse.items()}))
+
+    # -- 13a. four models trained on the card -------------------------------
+    trained, acc, train_log = {}, {}, {}
+    for name, (fwd, fam, kinds, epochs, lr) in TRAIN.items():
+        forward = getattr(gnn, fwd)
+        inputs = (x, *[sparse[k] for k in kinds])
+        p0 = getattr(gnn, f"init_{fam}")(SEED, f_fl, HIDDEN, n_cls, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, loss = gnn.train_node_classifier(forward, p0, inputs, y,
+                                            train_mask, epochs=epochs, lr=lr)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if any(w.device != x.device for w in p) or not math.isfinite(loss):
+            raise AssertionError(f"phase 13 {name}: weights on "
+                                 f"{[w.device.type for w in p]}, loss {loss}")
+        with torch.no_grad():
+            acc[name] = gnn.accuracy(forward(p, *inputs), y, test_mask)
+        trained[name] = p
+        train_log[name] = dict(forward=fwd, epochs=epochs, lr=lr,
+                               ms_a_step=wall * 1e3 / epochs, wall_s=wall,
+                               final_loss=loss, test_acc=acc[name])
+    log("phase 13 training: " + json.dumps(train_log))
+
+    # -- 13b. the trained weights through the packed forwards ---------------
+    packed = {"Ours(full)": (gnn.BitGCN(trained["Bi-GCN"], scheme="full"),
+                             ("gcn", "binary")),
+              "Ours(bin)": (gnn.BitGCN(trained["STE-bin"], scheme="bin"),
+                            ("gcn", "binary")),
+              "SAGE Ours": (gnn.BitSAGE(trained["SAGE Bi-GCN"]), ("mean",))}
+    ops.reset_launch_counts()
+    outs = {name: model(x, *[adjs[k] for k in kinds], return_bn_stats=True)
+            for name, (model, kinds) in packed.items()}
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.launch_counts().items()
+                if k in FORWARD_KERNELS}
+    missing = [k for k in FORWARD_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"phase 13 packed forwards: kernels never "
+                             f"launched: {missing}")
+    for name, (model, kinds) in packed.items():
+        logits, stats = outs[name]
+        if tuple(logits.shape) != (n_fl, n_cls) \
+                or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"phase 13 {name}: logits not finite of "
+                                 f"shape ({n_fl}, {n_cls})")
+        cpu_stats = tuple((mu.cpu(), sd.cpu()) for mu, sd in stats)
+        want = model.to("cpu")(x.cpu(), *[adjs[k].to("cpu") for k in kinds],
+                               bn_stats=cpu_stats)
+        model.to(dev)
+        agree(f"phase 13 {name} vs the CPU", logits.cpu().numpy(),
+              want.numpy())
+        acc[name] = gnn.accuracy(logits, y, test_mask)
+    # Ours(full) runs the Bi-GCN's function: its logits, not only its
+    # accuracy, must agree, as the reference's test holds them
+    with torch.no_grad():
+        ref = gnn.gcn_forward_bigcn(trained["Bi-GCN"], x, sparse["gcn"])
+    got = outs["Ours(full)"][0]
+    off = ~torch.isclose(got, ref, rtol=FULL_VS_BIGCN, atol=FULL_VS_BIGCN)
+    log(f"phase 13 Ours(full) vs Bi-GCN logits on the card: max |d| "
+        f"{float((got - ref).abs().max()):.3e}, {int(off.sum())} of "
+        f"{off.numel()} outside rtol = atol = {FULL_VS_BIGCN}")
+    full_vs_bigcn = int(off.sum())   # raised at the end, after the timings
+    cols = ("FP32", "Bi-GCN", "Ours(full)", "Ours(bin)", "SAGE Bi-GCN",
+            "SAGE Ours")
+    log("phase 13 test accuracy, full Flickr (STE-bin training forward "
+        f"{acc['STE-bin']:.4f}); launches {json.dumps(launches)}")
+    log("| " + " | ".join(cols) + " |")
+    log("| " + " | ".join(f"{acc[c]:.4f}" for c in cols) + " |")
+    if abs(acc["Ours(full)"] - acc["Bi-GCN"]) >= 0.04 \
+            or acc["Ours(bin)"] < acc["STE-bin"] - 0.05 \
+            or acc["SAGE Ours"] < acc["SAGE Bi-GCN"] - 0.06:
+        raise AssertionError("phase 13: a packed forward lost the accuracy "
+                             "of the training forward it runs")
+
+    # -- 13c. the trained GCN "bin" served through the fused kernel ---------
+    t0 = time.perf_counter()
+    st = GraphStore(max_batch=SERVE_BATCH, khop=2, use_pallas=True,
+                    fused=True, device=dev)
+    st.register_graph("flickr", flickr)
+    st.register_model("gcn", "gcn", trained["STE-bin"])
+    sess = st.session("flickr", "gcn")
+    sess.warmup(np.random.default_rng(SEED), probes=ENGINE_PROBES)
+    programs = sess.compile_count
+    seeds = np.random.default_rng(SEED + 7).integers(
+        0, n_fl, size=(TRAIN_BATCHES, SERVE_BATCH))
+    ops.reset_launch_counts()
+    served, times = [], []
+    for batch in seeds:
+        t1 = time.perf_counter()
+        served.append(sess.serve_subgraph(batch))
+        times.append((time.perf_counter() - t1) * 1e3)
+    counts = ops.launch_counts()
+    others = {k: v for k, v in counts.items() if k != "fused_layer" and v}
+    if counts["fused_layer"] != 2 * TRAIN_BATCHES or others:
+        raise AssertionError(f"phase 13 serve: {counts}, want "
+                             f"{2 * TRAIN_BATCHES} fused only")
+    if sess.compile_count != programs:
+        raise AssertionError(f"phase 13 serve: {sess.compile_count - programs}"
+                             f" new programs after warmup")
+    launches["fused_layer"] = counts["fused_layer"]
+    agree("phase 13 served trained GCN vs the card's full-graph forward",
+          np.concatenate(served), sess.full_logits()[seeds.reshape(-1)])
+    log(f"phase 13 serve: {TRAIN_BATCHES} batches of {SERVE_BATCH}, p50 "
+        f"{float(np.percentile(times, 50)):.3f} ms, launches "
+        f"{json.dumps(counts)}; {time.perf_counter() - t0:.1f} s")
+
+    # -- 13d. the backends of Tables 3-5 on the trained weights -------------
+    edges = torch.from_numpy(np.concatenate(
+        [flickr.edges, np.stack([np.arange(n_fl)] * 2)], axis=1)).to(dev)
+    norm = 1.0 / torch.sqrt(torch.bincount(edges[0], minlength=n_fl)
+                            .to(torch.float32) + 1.0)
+    p_fp, p_bi, p_sage = (trained[k] for k in ("FP32", "Bi-GCN",
+                                               "SAGE Bi-GCN"))
+    q_full = gnn.quantize_gcn(p_bi)
+    q_bin = gnn.quantize_gcn(trained["STE-bin"])
+    q_sage = gnn.quantize_sage(p_sage)
+
+    def fp32_scatter():
+        h = x @ p_fp.w1
+        h = gnn.aggregate_scatter(edges, h * norm[:, None], n_fl) \
+            * norm[:, None]
+        h2 = torch.relu(h) @ p_fp.w2
+        return gnn.aggregate_scatter(edges, h2 * norm[:, None], n_fl) \
+            * norm[:, None]
+
+    tables = {
+        "GCN": [
+            ("FP32(S)", fp32_scatter),
+            ("FP32(T)", lambda: gnn.gcn_forward_fp(p_fp, x, sparse["gcn"])),
+            ("Bi-GCN", lambda: gnn.gcn_forward_bigcn(p_bi, x, sparse["gcn"])),
+            ("Ours(full)", lambda: gnn.gcn_forward_bitgnn(
+                q_full, x, adjs["gcn"], adjs["binary"], scheme="full")),
+            ("Ours(bin)", lambda: gnn.gcn_forward_bitgnn(
+                q_bin, x, adjs["gcn"], adjs["binary"], scheme="bin"))],
+        "SAGE": [
+            ("FP32(T)", lambda: gnn.sage_forward_fp(p_sage, x,
+                                                    sparse["mean"])),
+            ("Bi-GCN", lambda: gnn.sage_forward_bigcn(p_sage, x,
+                                                      sparse["mean"])),
+            ("Ours(bin)", lambda: gnn.sage_forward_bitgnn(q_sage, x,
+                                                          adjs["mean"]))]}
+    for table, rows in tables.items():
+        out, base = {}, None
+        for name, fn in rows:
+            with torch.no_grad():
+                torch.cuda.synchronize()
+                resident = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                fn()
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated()
+                ms = cuda_ms(torch, fn)
+            base = base or ms
+            out[name] = dict(ms=ms, max_memory_allocated_mb=peak / 1e6,
+                             added_by_forward_mb=(peak - resident) / 1e6,
+                             speedup=base / ms)
+        log(f"phase 13 times, {table} on full Flickr, trained weights "
+            f"(speedup against {rows[0][0]}): " + json.dumps(out))
+    log(f"phase 13: {time.perf_counter() - t_start:.1f} s")
+    if full_vs_bigcn:
+        raise AssertionError(f"phase 13: {full_vs_bigcn} Ours(full) logits "
+                             f"outside {FULL_VS_BIGCN} of Bi-GCN's")
     return launches
 
 

@@ -8,6 +8,8 @@ elided (paper §3.1.2).
 BIN is the one op here with a kernel: :func:`bin_op` goes through
 ``kernels.ops.binarize_pack``, which launches the CUDA BIN kernel for a
 CUDA tensor and runs its plain version for a CPU tensor.
+:func:`straight_through_sign` is the training-time sign, with the clipped
+identity for its gradient.
 """
 from __future__ import annotations
 
@@ -97,3 +99,23 @@ def bn_bin_threshold(p: BNParams) -> torch.Tensor:
     """Fold BN into the following BIN: sign(BN(x)) == (x >= t) when gamma>0,
     with ``t = mean - beta*sqrt(var+eps)/gamma``."""
     return p.mean - p.beta * torch.sqrt(p.var + p.eps) / p.gamma
+
+
+class _STESign(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, v):
+        ctx.save_for_backward(v)
+        return torch.where(v >= 0, 1.0, -1.0).to(v.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        v, = ctx.saved_tensors
+        return g * (v.abs() <= 1.0).to(g.dtype)
+
+
+def straight_through_sign(x: torch.Tensor) -> torch.Tensor:
+    """sign(x) in {-1, +1}, with sign(0) = +1 (not ``torch.sign``, which
+    gives 0), and a straight-through gradient: ``g`` where ``|x| <= 1``, 0
+    elsewhere. Trains the binary weights and activations of the Bi-GCN
+    recipe (paper §5)."""
+    return _STESign.apply(x)

@@ -15,6 +15,7 @@ gathered columns, one machine word). The arrays then move to ``device``:
 """
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -253,20 +254,30 @@ def pad_frdc_uniform(mats, n_rows: int, n_cols: int, n_groups: int) -> list:
     return [pad_frdc(m, n_rows, n_cols, n_groups=n_groups) for m in mats]
 
 
+def nonzero_coords(m: FRDCMatrix) -> tuple:
+    """(rows, cols) of the matrix's ones, decoded from its tiles on the
+    host as int64 arrays (a pad group's tiles are 0 and add nothing)."""
+    tiles = m.tiles.cpu().numpy()
+    col_idx = m.col_idx.cpu().numpy().astype(np.int64)
+    group_row = m.group_row.cpu().numpy().astype(np.int64)
+    g_idx, t_idx = np.nonzero(tiles)
+    t = tiles[g_idx, t_idx]
+    rows, cols = [], []
+    for i in range(TILE):
+        for j in range(TILE):
+            hit = (t >> (i * TILE + j)) & 1 == 1
+            rows.append(group_row[g_idx[hit]] * TILE + i)
+            cols.append(col_idx[g_idx[hit], t_idx[hit]] * TILE + j)
+    return np.concatenate(rows), np.concatenate(cols)
+
+
 def to_dense(m: FRDCMatrix, dtype=torch.float32,
              apply_scales: bool = True) -> torch.Tensor:
     """Decode to a dense matrix on ``m``'s device — the BSpMM test oracle."""
-    tiles = m.tiles.cpu().numpy()
-    col_idx = m.col_idx.cpu().numpy()
-    group_row = m.group_row.cpu().numpy()
+    rows, cols = nonzero_coords(m)
     out = np.zeros((m.n_tile_rows * TILE, -(-m.n_cols // TILE) * TILE),
                    np.float32)
-    g_idx, t_idx = np.nonzero(tiles)
-    for i in range(TILE):
-        for j in range(TILE):
-            hit = (tiles[g_idx, t_idx] >> (i * TILE + j)) & 1 == 1
-            g, t = g_idx[hit], t_idx[hit]
-            out[group_row[g] * TILE + i, col_idx[g, t] * TILE + j] = 1.0
+    out[rows, cols] = 1.0
     out = out[:m.n_rows, :m.n_cols]
     if apply_scales:
         if m.row_scale is not None:
@@ -274,6 +285,34 @@ def to_dense(m: FRDCMatrix, dtype=torch.float32,
         if m.col_scale is not None:
             out = out * m.col_scale.cpu().numpy()[None, :]
     return torch.from_numpy(np.ascontiguousarray(out)).to(m.device, dtype)
+
+
+def to_sparse(m: FRDCMatrix, transpose: bool = False) -> torch.Tensor:
+    """The float32 matrix of :func:`to_dense`, with the same values, as a
+    sparse CSR tensor on ``m``'s device (its transpose with
+    ``transpose``): what the training forwards multiply by on the card,
+    where a dense full-graph adjacency does not fit (Flickr's is 89,250^2
+    x 4 B = 31.9 GB). A value is ``row_scale[r] * col_scale[c]`` in
+    float32, the product :func:`to_dense` forms."""
+    rows, cols = nonzero_coords(m)
+    vals = np.ones(rows.size, np.float32)
+    if m.row_scale is not None:
+        vals = vals * m.row_scale.cpu().numpy()[rows]
+    if m.col_scale is not None:
+        vals = vals * m.col_scale.cpu().numpy()[cols]
+    shape = (m.n_rows, m.n_cols)
+    if transpose:
+        rows, cols, shape = cols, rows, shape[::-1]
+    order = np.lexsort((cols, rows))
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    crow = np.zeros(shape[0] + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=shape[0]), out=crow[1:])
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "Sparse CSR tensor support")
+        warnings.filterwarnings("ignore", "Sparse invariant checks")
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(crow), torch.from_numpy(cols),
+            torch.from_numpy(vals), size=shape).to(m.device)
 
 
 def stats(m: FRDCMatrix) -> dict:

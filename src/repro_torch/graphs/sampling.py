@@ -1,18 +1,19 @@
-"""Deterministic k-hop subgraph extraction for serving (reference:
-``repro/graphs/sampling.py``).
+"""Inductive-learning samplers (GraphSAGE neighbour sampling, GraphSAINT
+node-budget subgraphs; paper §2.1 / §4.1) and the deterministic k-hop
+subgraph extraction of serving (reference: ``repro/graphs/sampling.py``).
 
-Host numpy, a copy of the reference's: the same calls in the same order, so
-every array equals the reference's for the same graph and seeds. The
-training samplers (``sage_sample``, ``saint_node_sampler``) come with the
-training slice.
+Host numpy, a copy of the reference's: the same calls in the same order,
+the samplers' numpy generator draws included, so every array equals the
+reference's for the same graph and seed.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Iterator, NamedTuple, Tuple
 
 import numpy as np
 
 from ..core import frdc
+from .datasets import GraphData
 
 
 class CSRGraph(NamedTuple):
@@ -30,12 +31,16 @@ class CSRGraph(NamedTuple):
 
 
 def to_csr(edges: np.ndarray, n_nodes: int) -> CSRGraph:
-    edges = np.asarray(edges, np.int64)
+    indptr, indices = _build_csr(np.asarray(edges, np.int64), n_nodes)
+    return CSRGraph(indptr=indptr, indices=indices, n_nodes=n_nodes)
+
+
+def _build_csr(edges: np.ndarray, n: int):
     order = np.argsort(edges[0], kind="stable")
-    counts = np.bincount(edges[0], minlength=n_nodes)
-    indptr = np.zeros(n_nodes + 1, np.int64)
+    counts = np.bincount(edges[0], minlength=n)
+    indptr = np.zeros(n + 1, np.int64)
     np.cumsum(counts, out=indptr[1:])
-    return CSRGraph(indptr=indptr, indices=edges[1][order], n_nodes=n_nodes)
+    return indptr, edges[1][order]
 
 
 def gather_neighbors(csr: CSRGraph, nodes: np.ndarray
@@ -110,6 +115,51 @@ def extract_khop(csr: CSRGraph, seeds: np.ndarray,
                  k: int) -> ExtractedSubgraph:
     """Extraction entry point of the serving path."""
     return ExtractedSubgraph(*khop_subgraph(csr, seeds, k))
+
+
+def sage_sample(data: GraphData, batch_nodes: np.ndarray, fanouts=(10, 10),
+                seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """GraphSAGE fixed-fanout neighbour expansion from ``batch_nodes``
+    outward, one fanout a layer. Returns (subgraph node ids, (2, E_sub)
+    edge list reindexed into the subgraph)."""
+    rng = np.random.default_rng(seed)
+    indptr, indices = _build_csr(data.edges, data.n_nodes)
+    frontier = np.unique(batch_nodes)
+    nodes = [frontier]
+    for fan in fanouts:
+        nxt = []
+        for u in frontier:
+            nbrs = indices[indptr[u]:indptr[u + 1]]
+            if nbrs.size > fan:
+                nbrs = rng.choice(nbrs, size=fan, replace=False)
+            nxt.append(nbrs)
+        frontier = np.unique(np.concatenate(nxt)) if nxt \
+            else np.array([], np.int64)
+        nodes.append(frontier)
+    sub_nodes = np.unique(np.concatenate(nodes))
+    remap = -np.ones(data.n_nodes, np.int64)
+    remap[sub_nodes] = np.arange(sub_nodes.size)
+    src, dst = data.edges
+    keep = (remap[src] >= 0) & (remap[dst] >= 0)
+    sub_edges = np.stack([remap[src[keep]], remap[dst[keep]]])
+    return sub_nodes, sub_edges
+
+
+def saint_node_sampler(data: GraphData, budget: int, seed: int = 0
+                       ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """GraphSAINT node sampler: subgraphs of a degree-proportional node
+    budget, without end."""
+    rng = np.random.default_rng(seed)
+    deg = np.bincount(data.edges[0], minlength=data.n_nodes) + 1.0
+    p = deg / deg.sum()
+    remapped = -np.ones(data.n_nodes, np.int64)
+    while True:
+        sub_nodes = np.unique(rng.choice(data.n_nodes, size=budget, p=p))
+        remapped[:] = -1
+        remapped[sub_nodes] = np.arange(sub_nodes.size)
+        src, dst = data.edges
+        keep = (remapped[src] >= 0) & (remapped[dst] >= 0)
+        yield sub_nodes, np.stack([remapped[src[keep]], remapped[dst[keep]]])
 
 
 def subgraph_adjacency(sub_nodes: np.ndarray, sub_edges: np.ndarray,

@@ -1,30 +1,41 @@
 """GNN models: GCN / GraphSAGE / GraphSAINT in full precision and as BitGNN
 packed-bit inference (reference: ``repro/models/gnn.py``).
 
-* ``*_forward_fp`` — full-precision forwards over a dense adjacency;
+* ``*_forward_fp`` — full-precision forwards;
+* ``*_forward_bigcn`` — the Bi-GCN baseline: logically binarized (sign and
+  scales applied, values stored fp32, fp32 matmuls), trained with
+  straight-through estimators; ``gcn_forward_ste_bin`` is the training
+  forward of the "bin" scheme;
 * ``*_forward_bitgnn`` — BitGNN packed inference through the two-level
   abstraction (GCN schemes: "full" = fp aggregation, "bin" = binary
   aggregation; Table 3's "Ours (full)" / "Ours (bin)");
 * ``BitGCN`` / ``BitSAGE`` / ``BitSAINT`` — ``nn.Module``s holding the packed
   weights as buffers; their ``forward`` is the functional forward.
 
+The fp and Bi-GCN forwards take the adjacency as a dense matrix or as the
+sparse :func:`sparse_adjacency` (the card's form: a dense full-graph
+matrix does not fit). :func:`train_node_classifier` trains any
+of them with the reference's AdamW; :func:`quantize_gcn` and friends then
+pack the trained weights for the bitgnn forwards.
+
 Parameters come from :func:`init_gcn` and friends (numpy glorot from a
 seed) or from :func:`params_from_numpy`, which takes the reference
 package's parameters as numpy arrays so both packages compute with the
-same weights.
+same weights; :func:`params_to_numpy` carries them back.
 """
 from __future__ import annotations
 
-from typing import Mapping, NamedTuple, Optional, Sequence, Union
+from typing import Callable, Mapping, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..core import abstraction, frdc
-from ..core.binarize import BinTensor
+from ..core.binarize import BinTensor, straight_through_sign
 from ..core.bmm import bmm, quantize_act, quantize_weight
 from ..core.bspmm import bspmm
+from ..optim.optimizer import AdamW
 
 
 # ---------------------------------------------------------------------------
@@ -111,6 +122,100 @@ def params_from_numpy(family: str,
                  for a in arrays))
 
 
+def params_to_numpy(params: NamedTuple) -> dict:
+    """The reverse of :func:`params_from_numpy`: ``{field: float32 array}``
+    on the host (``params_from_numpy(family, params_to_numpy(p))`` gives
+    ``p`` back)."""
+    return {f: t.detach().cpu().numpy()
+            for f, t in zip(params._fields, params)}
+
+
+# ---------------------------------------------------------------------------
+# Aggregation backends (the FP32 (S) / FP32 (T) rows of Tables 3-5)
+# ---------------------------------------------------------------------------
+
+def aggregate_scatter(edges: torch.Tensor, x: torch.Tensor, n: int,
+                      norm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """PyG scatter-gather semantics: a gather per edge, then a scatter-add
+    into the destination rows (``index_add``)."""
+    src, dst = edges
+    msgs = x[src]
+    if norm is not None:
+        msgs = msgs * norm[:, None]
+    return x.new_zeros((n, x.shape[1])).index_add(0, dst, msgs)
+
+
+def aggregate_dense(adj, x: torch.Tensor) -> torch.Tensor:
+    """PyG SpMM-tensor semantics: ``adj @ x``, with ``adj`` a dense matrix,
+    a sparse CSR tensor or a :class:`SparseAdjacency`."""
+    return adj @ x
+
+
+class _SparseMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, a_t, x):
+        ctx.a_t = a_t
+        return torch.sparse.mm(a, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, torch.sparse.mm(ctx.a_t, g)
+
+
+class SparseAdjacency(NamedTuple):
+    """A sparse CSR adjacency with its transpose, both built once:
+    ``adj @ x`` is ``torch.sparse.mm``, and its backward multiplies by the
+    stored transpose. (The backward of a bare CSR product transposes the
+    matrix on every step, which on the card synchronizes with the host a
+    few times a training step.) The mean adjacency is not symmetric, so
+    the transpose is its own matrix."""
+    csr: torch.Tensor
+    csr_t: torch.Tensor
+
+    def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
+        return _SparseMatmul.apply(self.csr, self.csr_t, x)
+
+
+def sparse_adjacency(m: frdc.FRDCMatrix) -> SparseAdjacency:
+    """The training forwards' adjacency on ``m``'s device: the matrix of
+    :func:`frdc.to_dense`, sparse."""
+    return SparseAdjacency(frdc.to_sparse(m), frdc.to_sparse(m, transpose=True))
+
+
+# ---------------------------------------------------------------------------
+# STE binarization (training time)
+# ---------------------------------------------------------------------------
+
+class _Abs(torch.autograd.Function):
+    """|v| with the reference's gradient at 0: +1, as ``jnp.abs`` has it
+    (``torch.abs`` gives 0 there). The forward is one ``abs``, so the
+    inference forwards pay nothing for the gradient."""
+
+    @staticmethod
+    def forward(ctx, v):
+        ctx.save_for_backward(v)
+        return v.abs()
+
+    @staticmethod
+    def backward(ctx, g):
+        v, = ctx.saved_tensors
+        return g * torch.where(v >= 0, 1.0, -1.0)
+
+
+_abs = _Abs.apply
+
+
+def _ste_binarize_w(w: torch.Tensor) -> torch.Tensor:
+    """sign(w) times the per-column mean |w|; the gradient flows through
+    the scale too."""
+    return straight_through_sign(w) * _abs(w).mean(dim=0, keepdim=True)
+
+
+def _ste_binarize_x(x: torch.Tensor) -> torch.Tensor:
+    """sign(x) times the per-row mean |x|."""
+    return straight_through_sign(x) * _abs(x).mean(dim=-1, keepdim=True)
+
+
 # ---------------------------------------------------------------------------
 # Batch norm
 # ---------------------------------------------------------------------------
@@ -172,6 +277,26 @@ def gcn_forward_fp(params: GCNParams, x, adj_dense):
     return adj_dense @ (h @ params.w2)
 
 
+def gcn_forward_bigcn(params: GCNParams, x, adj):
+    """Bi-GCN baseline: BN -> BIN -> BMM -> SCL -> SpMM per layer (Fig. 1),
+    logically binarized: fp32 storage and compute."""
+    h = _ste_binarize_x(batch_norm(x)) @ _ste_binarize_w(params.w1)
+    h = torch.relu(adj @ h)
+    h = _ste_binarize_x(batch_norm(h)) @ _ste_binarize_w(params.w2)
+    return adj @ h
+
+
+def gcn_forward_ste_bin(params: GCNParams, x, adj_hat, adj):
+    """Training forward of the BitGNN "bin" scheme: binary aggregation over
+    the unnormalized 0/1 adjacency ``adj_hat`` in layer 1."""
+    h = batch_norm(x) @ _ste_binarize_w(params.w1)   # BN + MM.FB?
+    s = straight_through_sign(h)                      # BIN (unit scale)
+    agg = adj_hat @ s                                 # binary aggregation
+    h1 = straight_through_sign(agg)                   # output BIN
+    h2 = h1 @ _ste_binarize_w(params.w2)              # MM.BB?
+    return adj @ h2                                   # fp aggregation
+
+
 class GCNQuant(NamedTuple):
     w1: BinTensor
     w2: BinTensor
@@ -230,6 +355,16 @@ def sage_forward_fp(params: SAGEParams, x, adj_mean_dense):
     h = x @ params.w1_self + (adj_mean_dense @ x) @ params.w1_agg
     h = torch.relu(h)
     return h @ params.w2_self + (adj_mean_dense @ h) @ params.w2_agg
+
+
+def sage_forward_bigcn(params: SAGEParams, x, adj_mean):
+    xb = _ste_binarize_x(batch_norm(x))
+    h = xb @ _ste_binarize_w(params.w1_self) \
+        + (adj_mean @ xb) @ _ste_binarize_w(params.w1_agg)
+    h = torch.relu(h)
+    hb = _ste_binarize_x(batch_norm(h))
+    return hb @ _ste_binarize_w(params.w2_self) \
+        + (adj_mean @ hb) @ _ste_binarize_w(params.w2_agg)
 
 
 def saint_forward_fp(params: SAINTParams, x, adj_sum_dense):
@@ -311,10 +446,41 @@ def bitgnn_layers(family: str, q, scheme: str = "bin",
     raise ValueError(f"unknown bitgnn family: {family!r}")
 
 
+# ---------------------------------------------------------------------------
+# Training (full-batch node classification) and evaluation
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits, labels, mask):
+    """Masked mean NLL: ``sum(nll * mask) / sum(mask)``."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, labels.long()[:, None])[:, 0]
+    mask = mask.to(logits.dtype)
+    return (nll * mask).sum() / mask.sum()
+
+
 def accuracy(logits, labels, mask) -> float:
     pred = logits.argmax(dim=-1)
     mask = mask.to(torch.float32)
     return float(((pred == labels).to(torch.float32) * mask).sum() / mask.sum())
+
+
+def train_node_classifier(forward: Callable, params: NamedTuple,
+                          inputs: tuple, y: torch.Tensor,
+                          train_mask: torch.Tensor, epochs: int = 150,
+                          lr: float = 1e-2, weight_decay: float = 5e-4):
+    """Full-batch training of any ``forward(params, *inputs)`` model with
+    the reference's AdamW. Runs where ``params`` lie; the loop reads nothing
+    back from the device until it returns ``(params, float(final loss))``."""
+    opt = AdamW(lr=lr, weight_decay=weight_decay)
+    state = opt.init(params)
+    mask = train_mask.to(torch.float32)
+    loss = torch.tensor(float("inf"))
+    for _ in range(epochs):
+        params = type(params)(*(p.detach().requires_grad_() for p in params))
+        loss = cross_entropy(forward(params, *inputs), y, mask)
+        grads = torch.autograd.grad(loss, params)
+        params, state = opt.update(type(params)(*grads), state, params)
+    return type(params)(*(p.detach() for p in params)), float(loss.detach())
 
 
 # ---------------------------------------------------------------------------

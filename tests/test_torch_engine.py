@@ -14,6 +14,7 @@ serial launches and counts one dispatch, light traffic drains through
 ``tick``, feature updates add no program after warmup, and the pipelined
 engines adopt feature updates on the main thread only.
 """
+import concurrent.futures
 import threading
 
 import numpy as np
@@ -186,11 +187,56 @@ class _Faults:
             raise RuntimeError(f"injected {op} fault")
 
 
+class _GatedWorker:
+    """An extract worker whose extraction starts only when the main thread
+    asks for its result.
+
+    Both engines hand the next batch's extraction to their worker before
+    they launch the current batch, and the worker pops its batch from the
+    queue when it runs. A launch or complete fault requeues the current
+    batch from the main thread. Whether that requeue or the worker's pop
+    comes first is up to the thread scheduler, in the reference engine as in
+    the port: the requeued batch is then served first or second by chance
+    (the port's CPU launch holds the GIL, so it often loses the race the
+    reference's asynchronous dispatch wins). Under this worker the pop always
+    comes after the requeue, so the requeued batch is served next, as the
+    retry path means it to be, and both engines take the same path."""
+
+    def __init__(self):
+        self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+        self._gates = []
+
+    def submit(self, fn, *args):
+        gate = threading.Event()
+        self._gates.append(gate)
+
+        def gated():
+            gate.wait()
+            return fn(*args)
+        return _GatedFuture(gate, self._pool.submit(gated))
+
+    def shutdown(self, wait=True):
+        for gate in self._gates:
+            gate.set()
+        self._pool.shutdown(wait=wait)
+
+
+class _GatedFuture:
+    def __init__(self, gate, future):
+        self._gate, self._future = gate, future
+
+    def result(self):
+        self._gate.set()
+        return self._future.result()
+
+
 def _serve_faulty(engine_cls, store, model, nodes, op, times):
     engine = engine_cls(store, max_batch=BATCH, mode="subgraph",
                         pipeline_depth=1, faults=_Faults(op, times),
                         max_retries=2, retry_backoff_s=0.0)
     engine.warmup("g", model, probes=4)
+    engine.close()
+    engine._pool = _GatedWorker()
     qs = engine.submit_many("g", model, nodes)
     raised = 0
     for _ in range(20):

@@ -16,6 +16,7 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
+    assert (ROOT / "src" / "repro_torch" / "optim" / "optimizer.py").is_file()
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 
@@ -39,7 +40,8 @@ def test_no_jax_or_reference_imports():
 def test_importing_the_port_loads_no_jax():
     pytest.importorskip("torch")
     code = ("import sys, repro_torch.models.gnn, repro_torch.kernels.ops, "
-            "repro_torch.serve.sharded, repro_torch.graphs.partition; "
+            "repro_torch.serve.sharded, repro_torch.graphs.partition, "
+            "repro_torch.optim, repro_torch.graphs.sampling; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
