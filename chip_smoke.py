@@ -110,6 +110,29 @@ result):
    FP32(T) and Bi-GCN on the sparse adjacency, Ours(full), Ours(bin)) and
    SAGE's three: median ms (CUDA events), peak memory over the forward,
    speedup against the first row.
+14. replica tier (``run_replica``) — full Flickr, GCN "bin" with phase 6's
+   weights: (a) ``FrontDoor(spread="query")`` over two single-host
+   replicas (``build_replica``, ``fused=True``, batch 32, pipeline depth
+   1), each with its own ``GraphStore`` on the card and a heartbeat
+   deadline of half a warm batch's serve time; a wave of 128 seeded
+   queries, one tick (a batch answered on each replica, the next
+   extracting), ``kill("r1")``, the deadline lapsed, drained: every query
+   answered, one failover, the moved queries on r0, only r1 marked down, no
+   program on either replica after warmup, both replicas' ``batch_log``
+   bit-equal replayed on a single-host card session; r1 revived,
+   readmitted, 64 more queries on both; (b) ``update_features`` on 1% of
+   the rows and 64 queries: each answer bit-equal to a session built on
+   the new features, every query pinned before the update answered before
+   it; (c) one replica with ``ShardedServeEngine`` at P = 2 (host
+   executor, 1D kernels): 64 steady queries, 64 more in flight, a
+   ``Resharder`` to P = 4 prepared on its thread while the old engine
+   ticks, 32 queries queued across the swap, ``swap()``, 64 on P = 4: zero
+   shed, the swap's drain answers the 32, ``routing.json`` of P2 written,
+   reshard phases prepared / swap_begin / swap_end; the new engine's
+   batches bit-equal on a freshly built P = 4 stack, the old engine's by
+   the rule of phase 3 there, both against the single-host session
+   bit-equal or by that rule (the line says which). Each part's kernels
+   must launch (fused_layer; rows 1-4 in (c)).
 
 Output: a JSON line with one record per kernel, the card's name and power
 limit from nvidia-smi, and last the line
@@ -172,6 +195,8 @@ ENGINE_PROBES = 4          # warmup probes of each engine run
 QPS_BATCHES = 4            # batches of each traced / untraced QPS run
 ROUTED_QUERIES = 128       # phase 12: queries to the sharded engine
 TRAIN_BATCHES = 4          # phase 13: served batches on trained weights
+REPLICA_WAVE = 128         # phase 14: the failover wave's queries
+REPLICA_QUERIES = 64       # phase 14: each later wave's queries
 # phase 13: model -> (training forward, family, adjacency kinds, epochs, lr),
 # the recipes of benchmarks/accuracy_experiment.py
 TRAIN = {"FP32": ("gcn_forward_fp", "gcn", ("gcn",), 150, 1e-2),
@@ -315,6 +340,24 @@ def bits_yardstick(torch, bitops, adj, x, n_feat, counts):
         raise AssertionError("bits yardstick: torch.sparse.mm differs from "
                              "the kernel's counts")
     return lambda: torch.sparse.mm(csr, pm1)
+
+
+def drive(torch, launches, path, expect, fn):
+    """Drive one path with the launch counts set to 0 just before it and
+    read just after; fail if a kernel of ``expect`` never launched. Adds
+    the counts to ``launches``; returns (what ``fn`` returned, the
+    counts)."""
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    missing = [k for k in expect if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{path}: kernels never launched: {missing}")
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    return out, counts
 
 
 def agree(what, got, want) -> None:
@@ -647,9 +690,10 @@ def run(torch) -> dict:
     # the engine paths' launches join each kernel's count
     engine_launches = run_engine(torch, flickr, stores, sharded_store, single)
     train_launches = run_train(torch, flickr, adjs["flickr"])
+    replica_launches = run_replica(torch, flickr, params)
     for rec in records:
-        rec["launches"] += engine_launches.get(rec["name"], 0) \
-            + train_launches.get(rec["name"], 0)
+        rec["launches"] += sum(ls.get(rec["name"], 0) for ls in (
+            engine_launches, train_launches, replica_launches))
     return {"kernels": records}
 
 
@@ -1587,7 +1631,6 @@ def run_engine(torch, flickr, stores, sharded_store, single) -> dict:
     import traceback
 
     import numpy as np
-    from repro_torch.kernels import ops
     from repro_torch.serve import (AdmissionController, GNNServeEngine,
                                    ShardedServeEngine, TenantPolicy)
 
@@ -1596,19 +1639,7 @@ def run_engine(torch, flickr, stores, sharded_store, single) -> dict:
     launches: dict = {}
 
     def counted(path, expect, fn):
-        """Drive one engine path with the launch counts set to 0 just
-        before it and read just after; fail if a kernel of ``expect``
-        never launched."""
-        ops.reset_launch_counts()
-        out = fn()
-        torch.cuda.synchronize()
-        counts = ops.launch_counts()
-        missing = [k for k in expect if counts[k] == 0]
-        if missing:
-            raise AssertionError(f"{path}: kernels never launched: {missing}")
-        for k, v in counts.items():
-            launches[k] = launches.get(k, 0) + v
-        return out, counts
+        return drive(torch, launches, path, expect, fn)
 
     def stats(eng, d0):
         snap = eng.snapshot()
@@ -2034,6 +2065,297 @@ def run_train(torch, flickr, adjs) -> dict:
     if full_vs_bigcn:
         raise AssertionError(f"phase 13: {full_vs_bigcn} Ours(full) logits "
                              f"outside {FULL_VS_BIGCN} of Bi-GCN's")
+    return launches
+
+
+def run_replica(torch, flickr, params) -> dict:
+    """Phase 14: the replica tier on full Flickr at hidden 64, GCN "bin"
+    with phase 6's seeded weights, BN calibrated by each store as in phase
+    6. Returns the phase's kernel launches by kernel name."""
+    import copy
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    from repro_torch.serve import (FaultInjector, FrontDoor, GraphStore,
+                                   HealthPolicy, Resharder, SpanTracer,
+                                   build_replica)
+
+    t_start = time.perf_counter()
+    n_fl = flickr.n_nodes
+    models = {"gcn": ("gcn", params["gcn"])}
+    launches: dict = {}
+    rng = np.random.default_rng(SEED + 8)
+
+    def nodes(n):
+        return rng.integers(0, n_fl, size=n)
+
+    def store(x=None, **kw):
+        st = GraphStore(max_batch=SERVE_BATCH, khop=2, use_pallas=True,
+                        device=DEVICE, **kw)
+        st.register_graph("flickr", flickr if x is None
+                          else dataclasses.replace(flickr, x=x))
+        st.register_model("gcn", *models["gcn"])
+        return st
+
+    def replica(name, **kw):
+        # a copy of the graph record: a feature update replaces the
+        # replica's x, not the one the other phases share
+        return build_replica(name, copy.copy(flickr), models,
+                             graph="flickr", device=DEVICE,
+                             max_batch=SERVE_BATCH, mode="subgraph",
+                             retry_backoff_s=0.001, **kw)
+
+    def answered(what, rqs):
+        lost = [q.qid for q in rqs if not q.done]
+        if lost:
+            raise AssertionError(f"{what}: {len(lost)} of {len(rqs)} "
+                                 f"queries unanswered")
+
+    def p50_p99(rqs):
+        lat = [q.latency_s * 1e3 for q in rqs]
+        return float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+
+    def cores(sess):
+        return sess.cores if hasattr(sess, "cores") else [sess.core]
+
+    def same_buckets(src, dst):
+        """Give ``dst``'s serve cores the padded shapes ``src``'s serve at,
+        so a replay launches the programs the engine launched."""
+        for a, b in zip(cores(src), cores(dst)):
+            b._n_water, b._g_water = a._n_water, dict(a._g_water)
+
+    def replay(batches, sess):
+        """(rows bit-equal, rows, engine answers, ``sess``'s answers) of
+        every batch of ``batches`` served again on ``sess``."""
+        got, want = [], []
+        for batch in batches:
+            want.append(np.asarray(sess.serve_subgraph(
+                np.asarray([q.node for q in batch], np.int64))))
+            got.append(np.stack([q.logits for q in batch]))
+        got, want = np.concatenate(got), np.concatenate(want)
+        return int((got == want).all(axis=1).sum()), len(got), got, want
+
+    def bit_equal(what, batches, sess):
+        eq, n, _, _ = replay(batches, sess)
+        if eq != n:
+            raise AssertionError(f"{what}: {n - eq} of {n} rows differ")
+        return n
+
+    def equal_or_agree(what, batches, sess):
+        """Bit-equal, or else the rule of phase 3; says which held."""
+        eq, n, got, want = replay(batches, sess)
+        if eq != n:
+            agree(what, got, want)
+        return f"{eq} of {n} rows bit-equal" + ("" if eq == n else
+                                                ", the rest by the rule")
+
+    # -- 14a. failover ------------------------------------------------------
+    t0 = time.perf_counter()
+    faults = FaultInjector(seed=SEED)
+    tracer = SpanTracer()
+    reps = [replica(f"r{i}", store_kw=dict(khop=2, use_pallas=True,
+                                           fused=True),
+                    faults=faults, tracer=tracer, pipeline_depth=1)
+            for i in range(2)]
+    for r in reps:
+        r.engine.warmup("flickr", "gcn", probes=ENGINE_PROBES)
+    # the heartbeat deadline: half a warm batch's serve time, so shorter
+    # than a tick; a monitor that checked a live replica before beating it
+    # would fail it over (only r1 may go down)
+    sess0 = reps[0].store.session("flickr", "gcn")
+    probe = nodes(SERVE_BATCH)
+    batch_ms = host_ms(torch, lambda: sess0.serve_subgraph(probe), iters=1)
+    deadline_s = batch_ms / 2e3
+    fd = FrontDoor(reps, faults=faults, tracer=tracer, spread="query",
+                   policy=HealthPolicy(deadline_s=deadline_s))
+    log(f"phase 14 tier: 2 fused replicas, warm batch {batch_ms:.1f} ms, "
+        f"deadline {deadline_s * 1e3:.1f} ms; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def failover():
+        qs = fd.submit_many("flickr", "gcn", nodes(REPLICA_WAVE))
+        # one tick: a batch answered on each replica, the next extracting
+        # (two would answer the whole wave, and nothing would fail over)
+        fd.tick()
+        compiles = reps[0].engine.compile_count
+        t_kill = time.perf_counter()
+        faults.kill("r1")
+        time.sleep(deadline_s)           # let the deadline lapse
+        fd.run_until_drained()
+        return qs, compiles, t_kill
+
+    t0 = time.perf_counter()
+    (wave, compiles, t_kill), counts = drive(
+        torch, launches, "replica failover", ("fused_layer",), failover)
+    answered("failover wave", wave)
+    moved = [q for q in wave if q.failovers]
+    down = [w.attrs["replica"] for w in tracer.warning_events()
+            if w.name == "replica_unhealthy"]
+    kinds = {w.name for w in tracer.warning_events()}
+    if fd.pending or fd.failovers != 1 or not fd.failover_queries \
+            or not moved or {q.replica for q in moved} != {"r0"} \
+            or down != ["r1"] or not {"replica_unhealthy",
+                                      "failover"} <= kinds:
+        raise AssertionError(f"failover: {fd.snapshot()}, down {down}")
+    if reps[0].engine.compile_count != compiles:
+        raise AssertionError(f"failover: the survivor's programs "
+                             f"{compiles} -> {reps[0].engine.compile_count}")
+    # no program after warmup: each replica served every batch at the
+    # buckets it has now, which its replay copies
+    kill_ms = (max(q.inner.t_done for q in moved) - t_kill) * 1e3
+    wave_p50, wave_p99 = p50_p99(wave)
+
+    def readmit():
+        faults.revive("r1")
+        for _ in range(4):               # recovery_beats good beats
+            fd.tick()
+        qs = fd.submit_many("flickr", "gcn", nodes(REPLICA_QUERIES))
+        fd.run_until_drained()
+        return qs
+
+    later, _ = drive(torch, launches, "replica readmission",
+                     ("fused_layer",), readmit)
+    answered("after readmission", later)
+    if not fd.health.healthy("r1") or fd.readmissions != 1 \
+            or {q.replica for q in later} != {"r0", "r1"}:
+        raise AssertionError(f"readmission: {fd.snapshot()}")
+    programs = [r.engine.recompile_watchdog.steady_recompiles for r in reps]
+    if any(programs):
+        raise AssertionError(f"failover: programs after warmup {programs}")
+    ref = store(fused=True).session("flickr", "gcn")
+    rows = 0
+    for r in reps:
+        same_buckets(r.store.session("flickr", "gcn"), ref)
+        rows += bit_equal(f"failover replay of {r.name}", r.engine.batch_log,
+                          ref)
+    log("phase 14a failover: " + json.dumps(dict(
+        wave=len(wave), wave_p50_ms=wave_p50, wave_p99_ms=wave_p99,
+        moved=fd.failover_queries, kill_to_last_moved_ms=kill_ms,
+        readmissions=fd.readmissions, launches=counts))
+        + f"; {rows} rows of both replicas' batch_log bit-equal on a "
+        f"single-host card session; {time.perf_counter() - t0:.1f} s")
+
+    # -- 14b. version pinning -----------------------------------------------
+    t0 = time.perf_counter()
+    v0 = fd.snapshot()["versions"]["flickr"]
+    logged = [len(r.engine.batch_log) for r in reps]
+    changed = rng.choice(n_fl, size=n_fl // 100, replace=False)
+    x_new = flickr.x.copy()
+    x_new[changed] = rng.standard_normal(
+        (changed.size, x_new.shape[1])).astype(np.float32)
+
+    def pinning():
+        t_update = time.perf_counter()
+        fd.update_features("flickr", x_new)
+        qs = fd.submit_many("flickr", "gcn", nodes(REPLICA_QUERIES))
+        fd.run_until_drained()
+        return qs, t_update
+
+    (pinned, t_update), _ = drive(torch, launches, "version pinning",
+                                  ("fused_layer",), pinning)
+    answered("after the update", pinned)
+    early = [q for q in wave + later
+             if q.pinned_version != v0 or q.inner.t_done > t_update]
+    if early or any(q.pinned_version != v0 + 1 for q in pinned):
+        raise AssertionError(f"pinning: {len(early)} queries pinned before "
+                             f"the update answered after it")
+    fresh = store(x=x_new, fused=True).session("flickr", "gcn")
+    n_rows = eq_old = 0
+    for r, n0 in zip(reps, logged):
+        post = list(r.engine.batch_log)[n0:]
+        same_buckets(r.store.session("flickr", "gcn"), fresh)
+        n_rows += bit_equal(f"{r.name} after the update vs a session built "
+                            f"on the new features", post, fresh)
+        same_buckets(r.store.session("flickr", "gcn"), ref)
+        eq_old += replay(post, ref)[0]
+    log(f"phase 14b version pinning: {changed.size} rows changed, "
+        f"{len(pinned)} queries pinned to v{v0 + 1}, {n_rows} rows "
+        f"bit-equal on a session built on the new features "
+        f"({n_rows - eq_old} differ from the old features' answers); "
+        f"{time.perf_counter() - t0:.1f} s")
+    for r in reps:
+        r.engine.close()
+
+    # -- 14c. live reshard P = 2 -> 4 ---------------------------------------
+    t0 = time.perf_counter()
+    tracer_c = SpanTracer()
+    rep = replica("s0", n_shards=2, store_kw=dict(khop=2, use_pallas=True),
+                  tracer=tracer_c)
+    rep.engine.warmup("flickr", "gcn", probes=ROUTED_PROBES)
+    old_engine = rep.engine
+    fd_c = FrontDoor([rep], tracer=tracer_c, spread="query",
+                     policy=HealthPolicy(deadline_s=deadline_s))
+    log(f"phase 14c replica at P = 2: {time.perf_counter() - t0:.1f} s")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def reshard():
+            steady = fd_c.submit_many("flickr", "gcn", nodes(REPLICA_QUERIES))
+            fd_c.run_until_drained()
+            pre = fd_c.submit_many("flickr", "gcn", nodes(REPLICA_QUERIES))
+            rs = Resharder(rep, "flickr", "gcn", 4, artifact_dir=tmp,
+                           tracer=tracer_c)
+            rs.prepare(block=False)
+            during = 0
+            while not rs.ready:          # the old engine serves the wave
+                n = fd_c.tick()
+                during += n
+                if not n:
+                    time.sleep(0.005)
+            # queries queued on the old engine across the swap, which its
+            # drain answers on P = 2
+            cross = fd_c.submit_many("flickr", "gcn", nodes(SERVE_BATCH))
+            report = rs.swap()
+            post = fd_c.submit_many("flickr", "gcn", nodes(REPLICA_QUERIES))
+            fd_c.run_until_drained()
+            return steady, pre + cross, post, report, during
+
+        t0 = time.perf_counter()
+        (steady, pre, post, report, during), counts = drive(
+            torch, launches, "live reshard", FORWARD_KERNELS, reshard)
+        sidecar = Path(tmp) / "flickr__gcn__P2" / "routing.json"
+        has_sidecar = sidecar.is_file()
+    answered("reshard", steady + pre + post)
+    phases = [w.attrs.get("phase") for w in tracer_c.warning_events()
+              if w.name == "reshard"]
+    if report.drain.shed or report.drain.answered != SERVE_BATCH \
+            or fd_c.pending or report.from_shards != 2 \
+            or rep.engine is old_engine or rep.engine.n_shards != 4 \
+            or not has_sidecar \
+            or phases != ["prepared", "swap_begin", "swap_end"]:
+        raise AssertionError(f"reshard: {report.to_json()}, phases "
+                             f"{phases}, routing.json {has_sidecar}")
+    steady_p99 = p50_p99(steady)[1]
+    blip_p99 = p50_p99(pre + post)[1]
+    blip_bound = max(5.0 * steady_p99, 1000.0)
+    # both sides against a freshly built P = 4 stack serving at the new
+    # engine's buckets, and against the single-host session at the node cap
+    fresh = store()
+    fresh_p4 = fresh.sharded_session("flickr", "gcn", 4)
+    same_buckets(rep.store.sharded_session("flickr", "gcn", 4), fresh_p4)
+    single = fresh.session("flickr", "gcn")
+    single.core.preset_water(single.core.node_cap, {}, 1.0)
+    new_rows = bit_equal("new engine vs a fresh P = 4 stack",
+                         rep.engine.batch_log, fresh_p4)
+    checks = {
+        "old engine vs a fresh P = 4 stack": equal_or_agree(
+            "old engine vs a fresh P = 4 stack", old_engine.batch_log,
+            fresh_p4),
+        "new engine vs a fresh P = 4 stack": f"{new_rows} rows bit-equal",
+        "old engine vs single-host": equal_or_agree(
+            "old engine vs single-host", old_engine.batch_log, single),
+        "new engine vs single-host": equal_or_agree(
+            "new engine vs single-host", rep.engine.batch_log, single)}
+    rep.engine.close()
+    log("phase 14c live reshard: " + json.dumps(dict(
+        prepare_s=report.prepare_s, swap_s=report.swap_s,
+        drain=report.drain.to_json(), answered_while_building=during,
+        steady_p99_ms=steady_p99, blip_p99_ms=blip_p99,
+        blip_bound_ms=blip_bound, blip_within=blip_p99 < blip_bound,
+        launches=counts)) + "; " + json.dumps(checks)
+        + f"; {time.perf_counter() - t0:.1f} s")
+    log("phase 14 launches: " + json.dumps(launches))
+    log(f"phase 14: {time.perf_counter() - t_start:.1f} s")
     return launches
 
 

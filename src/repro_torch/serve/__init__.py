@@ -24,9 +24,11 @@
 ``export``       — Chrome-trace JSON and Prometheus text over the trace
                    ring buffer.
 ``sharded``      — partitioned sessions and the ShardedServeEngine.
+``replica``      — fault-tolerant replica tier: FrontDoor routing with
+                   health-checked failover, deterministic fault injection,
+                   live reshard (see ``repro_torch.serve.replica``).
 
-The token tier (token sessions and engine) and the replica tier are not
-ported.
+The token tier (token sessions and engine) is not ported.
 """
 from .adapters import GNNAdapter, ModelFamilyAdapter
 from .admission import (AdmissionController, AdmissionDecision,
@@ -43,6 +45,9 @@ from .sharded import (ShardedGraphSession, ShardedServeEngine, ShardPlan,
 from .slo import SLOPolicy, SLOTracker
 from .trace import (BatchTrace, RecompileWatchdog, SpanTracer,
                     TransferWatchdog, WarningEvent)
+from .replica import (FaultInjector, FrontDoor, HealthMonitor,
+                      HealthPolicy, InjectedFault, ReplicaHandle,
+                      Resharder, ReshardReport, RoutedQuery, build_replica)
 
 __all__ = [
     "AdmissionController", "AdmissionDecision", "DEFAULT_TENANT",
@@ -56,4 +61,7 @@ __all__ = [
     "SLOPolicy", "SLOTracker",
     "ArtifactError", "DrainReport", "QueryFailure",
     "ModelFamilyAdapter", "GNNAdapter",
+    "FaultInjector", "InjectedFault", "FrontDoor", "ReplicaHandle",
+    "RoutedQuery", "build_replica", "HealthMonitor", "HealthPolicy",
+    "Resharder", "ReshardReport",
 ]

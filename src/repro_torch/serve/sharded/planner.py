@@ -19,8 +19,9 @@ Every edge of the input lands in exactly one shard's intra OR halo
 adjacency; self-loops added by the GCN normalization are intra by
 construction. The plan is host state, built with numpy exactly as the
 reference builds it (the FRDC matrices as CPU tensors): the layer
-executor copies its padded operands to the session's device. The replica
-tier's ``validate_reshard`` comes with that tier.
+executor copies its padded operands to the session's device.
+:func:`validate_reshard` is the replica tier's pre-swap check of a live
+reshard's two routing tables.
 """
 from __future__ import annotations
 
@@ -233,3 +234,24 @@ class ShardPlanner:
                          n_nodes=n, n_edges=int(rows.size))
         plan.spmd_plan()            # record the uniform dims + halo schedule
         return plan
+
+
+def validate_reshard(old_routing: RoutingTable, new_routing: RoutingTable,
+                     n_nodes: int) -> None:
+    """Pre-swap consistency gate for a live reshard P -> P': both routing
+    tables must be well-formed contiguous covers of the SAME node id space
+    ``[0, n_nodes)`` — a reshard redistributes ownership, it never changes
+    the graph. Raises ValueError naming the violated invariant (the reshard
+    aborts before any traffic moves)."""
+    for name, rt in (("old", old_routing), ("new", new_routing)):
+        b = np.asarray(rt.bounds, np.int64)
+        if b.size < 2:
+            raise ValueError(f"reshard: {name} routing has {b.size} bounds "
+                             f"(need >= 2)")
+        if int(b[0]) != 0 or int(b[-1]) != n_nodes:
+            raise ValueError(
+                f"reshard: {name} routing covers [{int(b[0])}, "
+                f"{int(b[-1])}) but the graph has {n_nodes} nodes")
+        if np.any(np.diff(b) < 0):
+            raise ValueError(f"reshard: {name} routing bounds are not "
+                             f"monotone: {b.tolist()}")

@@ -74,6 +74,13 @@ STAGES = ("queue_wait", "extract", "launch", "compute")
 REPLICA_EVENTS = ("replica_unhealthy", "replica_recovered", "failover",
                   "reshard", "retry_exhausted", "drain")
 
+# torch's CUDA sync debug mode, which TransferWatchdog.strict_guard sets, is
+# one setting for the whole process (JAX's transfer guard is per thread).
+# A strict guard and card work on another thread that must synchronize (the
+# replica tier's background reshard build) take this lock, so the one never
+# runs while the other's mode is set. Process-wide, as the mode it guards.
+SYNC_EXCLUSIVE = threading.RLock()
+
 
 @dataclasses.dataclass
 class SpanEvent:
@@ -435,24 +442,27 @@ class TransferWatchdog:
         host, a stream sync) RAISES; an exception out of the block is
         counted, and the previous mode is restored on exit. The mode is
         process-global, not per thread: while it is set, no other thread
-        may do CUDA work that syncs (the extract worker does none). Without
-        CUDA the mode is not set, as the reference's guard never fires on
-        the CPU backend; the type checks above carry the signal there."""
+        may do CUDA work that syncs (the extract worker does none; a
+        background reshard build holds :data:`SYNC_EXCLUSIVE`, which the
+        guard waits for). Without CUDA the mode is not set, as the
+        reference's guard never fires on the CPU backend; the type checks
+        above carry the signal there."""
         import torch
         armed = torch.cuda.is_available()
-        if armed:
-            prev = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-        try:
-            yield
-        except Exception:
-            self.host_sync_in_launch += 1
-            self._emit(self.host_sync_in_launch, "host_sync_in_launch",
-                       source="transfer_guard")
-            raise
-        finally:
+        with SYNC_EXCLUSIVE:
             if armed:
-                torch.cuda.set_sync_debug_mode(prev)
+                prev = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                yield
+            except Exception:
+                self.host_sync_in_launch += 1
+                self._emit(self.host_sync_in_launch, "host_sync_in_launch",
+                           source="transfer_guard")
+                raise
+            finally:
+                if armed:
+                    torch.cuda.set_sync_debug_mode(prev)
 
     def snapshot(self) -> dict:
         return dict(family=self.family,

@@ -41,7 +41,9 @@ def test_importing_the_port_loads_no_jax():
     pytest.importorskip("torch")
     code = ("import sys, repro_torch.models.gnn, repro_torch.kernels.ops, "
             "repro_torch.serve.sharded, repro_torch.graphs.partition, "
-            "repro_torch.optim, repro_torch.graphs.sampling; "
+            "repro_torch.optim, repro_torch.graphs.sampling, "
+            "repro_torch.serve.replica; "
+            "from repro_torch.serve.sharded.planner import validate_reshard; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
@@ -60,7 +62,8 @@ def test_entry_points_default_to_the_card():
     try:
         mods = {m: importlib.import_module(f"repro_torch.{m}") for m in (
             "serve.gnn_session", "serve.sharded.session",
-            "serve.sharded.executor", "graphs.partition")}
+            "serve.sharded.executor", "graphs.partition",
+            "serve.replica.router")}
     finally:
         sys.path.remove(str(ROOT / "src"))
     entries = [
@@ -70,6 +73,7 @@ def test_entry_points_default_to_the_card():
         mods["serve.sharded.session"].ShardedGraphSession.load,
         mods["serve.sharded.executor"].HostLayerExecutor.__init__,
         mods["graphs.partition"].partition_rows,
+        mods["serve.replica.router"].build_replica,
     ]
     for fn in entries:
         assert inspect.signature(fn).parameters["device"].default == "cuda", \
