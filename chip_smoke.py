@@ -133,6 +133,31 @@ result):
    the rule of phase 3 there, both against the single-host session
    bit-equal or by that rule (the line says which). Each part's kernels
    must launch (fused_layer; rows 1-4 in (c)).
+15. token tier (``run_token``) — the binary transformer / SSM / MoE stack,
+   bf16, seeded weights from a ``torch.Generator`` on the card. It runs
+   none of the kernels above: its products are cuBLAS calls, as the
+   reference's are XLA dots. (a) ``stablelm-1.6b`` at full width and depth
+   in one ``TokenStore(max_batch=4, max_len=512, chunk=8)``, registered fp
+   and ``quantize=True`` (bit-packed projections); each through
+   ``TokenServeEngine(pipeline_depth=1)``: warmup, then 16 requests
+   (prompts of 8-128 tokens, ``max_new`` 16-64, from ``default_rng(SEED +
+   9)``): every query answered with ``t_first_token`` set, no new program
+   after warmup, every served batch bit-equal to a stepwise
+   ``decode_step`` loop on the card at the session's batch and cache
+   length (``stepwise``); a depth-1 drain with the launch stage
+   inside ``strict_guard()`` reads 0 ``host_sync_in_launch``; one
+   sequence's teacher-forced logits on the card against the same
+   ``decode_chunk`` on the CPU within the reference's rtol = atol = 0.15.
+   (b) ``rwkv6-3b`` at full width and depth through ``TokenSession.run``,
+   fp and quantized: the same bit-equality, and ``decode_chunk`` bit-equal
+   to stepwise decode, logits and every cache leaf. (c) every arch of
+   ``configs.ARCHS`` at full width, cut in depth (a ``reduced`` line lists
+   the cuts): finite logits, ``decode_step`` against ``forward`` by the
+   0.15 rule (not vlm, as the reference), and two decodes of
+   ``qwen2-moe-a2.7b`` bit-equal. Prints tokens/s, TTFT p50/p99, ms a
+   decode step (host clock and CUDA events), the device's idle share over
+   one chunk (torch.profiler), fp and packed parameter bytes, peak memory
+   and the phase's seconds.
 
 Output: a JSON line with one record per kernel, the card's name and power
 limit from nvidia-smi, and last the line
@@ -197,6 +222,15 @@ ROUTED_QUERIES = 128       # phase 12: queries to the sharded engine
 TRAIN_BATCHES = 4          # phase 13: served batches on trained weights
 REPLICA_WAVE = 128         # phase 14: the failover wave's queries
 REPLICA_QUERIES = 64       # phase 14: each later wave's queries
+TOKEN_REQUESTS = 16        # phase 15: requests to each stablelm engine
+TOKEN_BATCH = 4            # phase 15: the token store's max_batch
+TOKEN_MAX_LEN = 512        # phase 15: the token store's max_len
+TOKEN_CHUNK = 8            # phase 15: decode steps a launch
+TOKEN_TOL = 0.15           # phase 15: the reference's forward-vs-decode rule
+# phase 15 (c): each arch's depth at full width (the registry's otherwise)
+# (zamba2's shared attention block runs at every 6th layer, so 6 layers)
+TOKEN_DEPTH = {"zamba2-1.2b": dict(n_layers=6),
+               "seamless-m4t-medium": dict(enc_layers=2, dec_layers=2)}
 # phase 13: model -> (training forward, family, adjacency kinds, epochs, lr),
 # the recipes of benchmarks/accuracy_experiment.py
 TRAIN = {"FP32": ("gcn_forward_fp", "gcn", ("gcn",), 150, 1e-2),
@@ -694,6 +728,7 @@ def run(torch) -> dict:
     for rec in records:
         rec["launches"] += sum(ls.get(rec["name"], 0) for ls in (
             engine_launches, train_launches, replica_launches))
+    run_token(torch)
     return {"kernels": records}
 
 
@@ -2357,6 +2392,345 @@ def run_replica(torch, flickr, params) -> dict:
     log("phase 14 launches: " + json.dumps(launches))
     log(f"phase 14: {time.perf_counter() - t_start:.1f} s")
     return launches
+
+
+def token_config(name: str):
+    """Phase 15's configuration of arch ``name``: the registry's, at full
+    width, resolved for one device."""
+    from repro_torch.configs import get_config
+    return get_config(name).resolve_for_mesh(tp=1)
+
+
+def stepwise(torch, cfg, params, prompts, max_news, batch, cache_len):
+    """Phase 15's ground truth for one served batch: a Python loop of
+    ``decode_step`` at the session's ``batch`` and ``cache_len``, each slot
+    fed its prompt token while it lasts and then its previous argmax (the
+    reference's direct loop, at the served shapes, its feedback kept on
+    the card). Returns each request's ``max_new`` generated tokens."""
+    import numpy as np
+    from repro_torch.models import transformer
+    lens = [int(p.size) for p in prompts]
+    steps = max(n + int(m) for n, m in zip(lens, max_news)) - 1
+    grid = np.zeros((batch, steps), np.int32)
+    for i, p in enumerate(prompts):
+        grid[i, :p.size] = p[:steps]
+    grid = torch.from_numpy(grid).to(DEVICE)
+    fed = torch.tensor(lens + [0] * (batch - len(lens)), device=DEVICE)
+    cache = transformer.init_cache(cfg, batch, cache_len, device=DEVICE)
+    prev = torch.zeros(batch, dtype=torch.int32, device=DEVICE)
+    gens = []
+    for t in range(steps):
+        tok = torch.where(t < fed, grid[:, t], prev)
+        logits, cache = transformer.decode_step(params, cfg, cache,
+                                                tok[:, None], t)
+        prev = torch.argmax(logits[:, 0, :cfg.vocab], dim=-1).to(torch.int32)
+        gens.append(prev)
+    gens = torch.stack(gens, dim=1).cpu().numpy()
+    return [gens[i, n - 1:n - 1 + int(m)]
+            for i, (n, m) in enumerate(zip(lens, max_news))]
+
+
+def chunk_timing(torch, session, prompts) -> dict:
+    """ms a decode step of one chunk launch of ``session`` at its batch
+    and water: on the host clock (launch to synchronize) and on CUDA
+    events (median of 3), and the device's busy ms and its kernels and
+    memsets over one such chunk (torch.profiler) beside the host ms of
+    that chunk, whose difference is the time the card idles; with the
+    aten calls a step and the six aten ops of most self host time in the
+    profiled chunk ([ms, calls]; the profiler slows the host)."""
+    from torch.profiler import ProfilerActivity, profile
+    prepared = session.prepare_batch(prompts, [TOKEN_CHUNK] * len(prompts))
+    staged = prepared.groups[0].staged
+    core = session.core
+
+    def chunk():
+        state = core.adapter.init_state(core.max_batch, prepared.cache_len,
+                                        device=DEVICE)
+        return core.launch(staged, state)
+
+    host, events = [], []
+    chunk()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        chunk()
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        events.append(start.elapsed_time(end))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        chunk()
+        torch.cuda.synchronize()
+    busy, n_dev, host_ops = 0.0, 0, []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy += (e.device_time_total if hasattr(e, "device_time_total")
+                     else e.cuda_time_total)
+            n_dev += e.count
+        elif e.key.startswith("aten::"):
+            host_ops.append((e.self_cpu_time_total, e.key, e.count))
+    host_ms, ev_ms = statistics.median(host), statistics.median(events)
+    busy_ms = busy / 1e3
+    top = sorted(host_ops, reverse=True)[:6]
+    return dict(host_ms_per_step=host_ms / TOKEN_CHUNK,
+                event_ms_per_step=ev_ms / TOKEN_CHUNK,
+                device_ops_per_step=n_dev / TOKEN_CHUNK,
+                aten_calls_per_step=sum(c for _, _, c in host_ops)
+                / TOKEN_CHUNK,
+                top_host_ops_profiled={k: [round(t / 1e3, 3), c]
+                                       for t, k, c in top},
+                device_busy_ms_per_chunk=busy_ms,
+                host_ms_per_chunk=host_ms,
+                idle_share=(max(0.0, 1.0 - busy_ms / host_ms)
+                            if busy_ms > 0 else None))
+
+
+def run_token(torch) -> None:
+    """Phase 15: the token tier on the card (see the module docstring).
+    Launches none of the GNN kernels; a failed check raises."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import transformer
+    from repro_torch.quant.binary_linear import quantized_param_bytes
+    from repro_torch.serve import TokenServeEngine, TokenSession, TokenStore
+
+    t_start = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+
+    def to_cpu(tree):
+        if isinstance(tree, dict):
+            return {k: to_cpu(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(to_cpu(v) for v in tree)
+        return tree.cpu()
+
+    def pct(xs):
+        return (float(np.percentile(xs, 50)), float(np.percentile(xs, 99)))
+
+    # -- 15a. stablelm-1.6b, served fp and packed ---------------------------
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = token_config("stablelm-1.6b")
+    params = transformer.init_params(cfg, gen, DEVICE)
+    store = TokenStore(max_batch=TOKEN_BATCH, max_len=TOKEN_MAX_LEN,
+                       chunk=TOKEN_CHUNK, warm_len=128, warm_new=16,
+                       device=DEVICE)
+    store.register_model("fp", cfg, params)
+    store.register_model("bin", cfg, params, quantize=True)
+    rng = np.random.default_rng(SEED + 9)
+    lens = rng.integers(8, 129, TOKEN_REQUESTS)
+    news = rng.integers(16, 65, TOKEN_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+               for n in lens]
+    log(f"phase 15a stablelm-1.6b: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"vocab {cfg.vocab}, params {time.perf_counter() - t0:.1f} s")
+    for name in ("fp", "bin"):
+        t1 = time.perf_counter()
+        eng = TokenServeEngine(store, pipeline_depth=1)
+        warm = eng.warmup(name, probes=1)
+        c0 = eng.compile_count
+        t2 = time.perf_counter()
+        qs = [eng.submit(name, p, max_new=int(m))
+              for p, m in zip(prompts, news)]
+        eng.run_until_drained()
+        wall = time.perf_counter() - t2
+        eng.close()
+        steady = eng.snapshot()["watchdogs"]["recompile"]["steady_recompiles"]
+        if not all(q.done and q.t_first_token > 0.0 for q in qs) \
+                or eng.compile_count != c0 or steady:
+            raise AssertionError(
+                f"phase 15a {name}: {sum(q.done for q in qs)} of {len(qs)} "
+                f"answered, {eng.compile_count - c0} new programs, "
+                f"{steady} steady recompiles")
+        sess = store.session(name)
+        cache_len = sess.core._n_water
+        for batch in eng.batch_log:
+            want = stepwise(torch, cfg, sess.core.qparams,
+                            [q.prompt for q in batch],
+                            [q.max_new for q in batch], TOKEN_BATCH,
+                            cache_len)
+            for q, w in zip(batch, want):
+                if not np.array_equal(q.tokens, w):
+                    raise AssertionError(
+                        f"phase 15a {name}: query {q.qid} differs from the "
+                        f"stepwise loop at batch {TOKEN_BATCH}, cache "
+                        f"{cache_len}")
+        n_tok = sum(len(q.tokens) for q in qs)
+        ttft = pct([q.ttft_s * 1e3 for q in qs])
+        timing = chunk_timing(torch, sess, prompts[:TOKEN_BATCH])
+        log(f"phase 15a stablelm-1.6b {name}: " + json.dumps(dict(
+            warmup_programs=warm, new_programs_after_warmup=0,
+            batches=len(eng.batch_log), cache_len=cache_len,
+            generated_tokens=n_tok, serve_s=wall, tokens_per_s=n_tok / wall,
+            ttft_ms_p50=ttft[0], ttft_ms_p99=ttft[1],
+            param_bytes=quantized_param_bytes(sess.core.qparams),
+            stepwise="every stream bit-equal", **timing))
+            + f"; {time.perf_counter() - t1:.1f} s")
+
+    # the launch stage inside the strict guard: a depth-1 drain of one batch
+    class Guarded(TokenServeEngine):
+        def _launch_stage(self, inf):
+            with self.transfer_watchdog.strict_guard():
+                super()._launch_stage(inf)
+
+    guarded = Guarded(store, pipeline_depth=1, max_retries=1,
+                      retry_backoff_s=0.0)
+    gq = [guarded.submit("fp", p[:16], max_new=16)
+          for p in prompts[:TOKEN_BATCH]]
+    guarded.run_until_drained()
+    guarded.close()
+    wd = guarded.transfer_watchdog.snapshot()
+    if wd["host_sync_in_launch"] or not all(q.done for q in gq):
+        raise AssertionError(f"phase 15a strict guard: {wd}, "
+                             f"{sum(q.done for q in gq)} answered")
+    log("phase 15a strict guard, depth 1: " + json.dumps(wd))
+
+    # one sequence's logits on the card against the CPU, same path
+    seq = np.concatenate([prompts[0], qs[0].tokens])[:TOKEN_CHUNK]
+    toks = torch.from_numpy(seq[None].astype(np.int64))
+    card, _ = transformer.decode_chunk(
+        params, cfg, transformer.init_cache(cfg, 1, 64, device=DEVICE),
+        toks.to(DEVICE), 0)
+    cpu, _ = transformer.decode_chunk(
+        to_cpu(params), cfg, transformer.init_cache(cfg, 1, 64, device="cpu"),
+        toks, 0)
+    card, cpu = card.float().cpu().numpy(), cpu.float().numpy()
+    if not np.allclose(card, cpu, rtol=TOKEN_TOL, atol=TOKEN_TOL):
+        raise AssertionError(f"phase 15a logits card vs CPU: max |d| "
+                             f"{np.abs(card - cpu).max()}")
+    log(f"phase 15a fp logits, {TOKEN_CHUNK} teacher-forced steps, card vs "
+        f"CPU: max |d| "
+        f"{float(np.abs(card - cpu).max())} (rule rtol = atol = {TOKEN_TOL}); "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del params, store, eng, guarded, sess
+    torch.cuda.empty_cache()
+
+    # -- 15b. rwkv6-3b through TokenSession.run -----------------------------
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = token_config("rwkv6-3b")
+    params = transformer.init_params(cfg, gen, DEVICE)
+    r_prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+                 for n in rng.integers(8, 33, TOKEN_BATCH)]
+    r_news = [16] * TOKEN_BATCH
+    for quant in (False, True):
+        t1 = time.perf_counter()
+        sess = TokenSession("rwkv", cfg, params, max_batch=TOKEN_BATCH,
+                            max_len=TOKEN_MAX_LEN, chunk=TOKEN_CHUNK,
+                            quantize=quant, device=DEVICE)
+        t2 = time.perf_counter()
+        outs = sess.run(r_prompts, r_news)
+        wall = time.perf_counter() - t2
+        want = stepwise(torch, cfg, sess.core.qparams, r_prompts, r_news,
+                        TOKEN_BATCH, sess.core._n_water)
+        if not all(np.array_equal(o, w) for o, w in zip(outs, want)):
+            raise AssertionError(f"phase 15b rwkv6-3b quantize={quant}: "
+                                 f"streams differ from the stepwise loop")
+        # decode_chunk against stepwise decode, logits and every cache leaf
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 9))).to(DEVICE)
+        c_s = transformer.init_cache(cfg, 2, 32, device=DEVICE)
+        rows = []
+        for i in range(toks.shape[1]):
+            lg, c_s = transformer.decode_step(sess.core.qparams, cfg, c_s,
+                                              toks[:, i:i + 1], i)
+            rows.append(lg[:, 0])
+        got, c_c = transformer.decode_chunk(
+            sess.core.qparams, cfg,
+            transformer.init_cache(cfg, 2, 32, device=DEVICE), toks, 0)
+        leaves_s = transformer.cache_to_numpy(c_s)["layers"]
+        leaves_c = transformer.cache_to_numpy(c_c)["layers"]
+        if not torch.equal(got, torch.stack(rows, dim=1)) or any(
+                not np.array_equal(a[k], b[k])
+                for a, b in zip(leaves_s, leaves_c) for k in a):
+            raise AssertionError(f"phase 15b rwkv6-3b quantize={quant}: "
+                                 f"decode_chunk differs from stepwise")
+        n_tok = sum(len(o) for o in outs)
+        timing = chunk_timing(torch, sess, r_prompts)
+        log(f"phase 15b rwkv6-3b quantize={quant}: " + json.dumps(dict(
+            layers=cfg.n_layers, d_model=cfg.d_model,
+            cache_len=sess.core._n_water, generated_tokens=n_tok,
+            run_s=wall, tokens_per_s=n_tok / wall,
+            param_bytes=quantized_param_bytes(sess.core.qparams),
+            stepwise="every stream bit-equal",
+            decode_chunk="bit-equal to stepwise, logits and cache leaves",
+            **timing)) + f"; {time.perf_counter() - t1:.1f} s")
+        del sess
+    log(f"phase 15b peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+
+    # -- 15c. every arch at full width, cut in depth ------------------------
+    t0 = time.perf_counter()
+    cuts, rows = {}, {}
+    for name in sorted(ARCHS):
+        t1 = time.perf_counter()
+        full = token_config(name)
+        cut = TOKEN_DEPTH.get(name, dict(n_layers=2))
+        cfg = dataclasses.replace(full, **cut)
+        cuts[name] = {k: f"{getattr(full, k)} -> {v}" for k, v in cut.items()}
+        torch.cuda.reset_peak_memory_stats()
+        params = transformer.init_params(cfg, gen, DEVICE)
+        b, t = 2, 8
+        kw = {}
+        t_text = t
+        if cfg.family == "vlm":
+            t_text = 4
+            kw["image_embeds"] = torch.randn(
+                (b, cfg.frontend_len, cfg.frontend_dim), generator=gen,
+                device=DEVICE)
+        if cfg.is_encdec:
+            kw["frames"] = torch.randn(
+                (b, cfg.frontend_len, cfg.frontend_dim), generator=gen,
+                device=DEVICE)
+        tokens = torch.randint(0, cfg.vocab, (b, t_text), generator=gen,
+                               device=DEVICE)
+        logits = transformer.forward(params, cfg, tokens, **kw).float()
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"phase 15c {name}: logits not finite")
+        row = dict(shape=list(logits.shape))
+        if cfg.family != "vlm":
+            cache = transformer.init_cache(cfg, b, t + 4,
+                                           enc_len=cfg.frontend_len,
+                                           device=DEVICE)
+            if cfg.is_encdec:
+                cache["enc_memory"] = transformer._encode(
+                    params, cfg, kw["frames"], q_chunk=0)
+            for i in range(t):
+                dec, cache = transformer.decode_step(
+                    params, cfg, cache, tokens[:, i:i + 1], i)
+            d = (dec[:, 0].float() - logits[:, -1]).abs()
+            row["decode_vs_forward_max_abs"] = float(d.max())
+            if not torch.allclose(dec[:, 0].float(), logits[:, -1],
+                                  rtol=TOKEN_TOL, atol=TOKEN_TOL):
+                raise AssertionError(f"phase 15c {name}: decode vs forward "
+                                     f"max |d| {float(d.max())}")
+        if cfg.family == "moe" and name == "qwen2-moe-a2.7b":
+            runs = [transformer.decode_chunk(
+                params, cfg, transformer.init_cache(cfg, b, 16,
+                                                    device=DEVICE),
+                tokens, 0)[0] for _ in range(2)]
+            if not torch.equal(runs[0], runs[1]):
+                raise AssertionError("phase 15c qwen2-moe-a2.7b: two "
+                                     "decodes differ")
+            row["two_decodes"] = "bit-equal"
+        row["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        row["s"] = time.perf_counter() - t1
+        rows[name] = row
+        del params, logits
+        torch.cuda.empty_cache()
+    log("phase 15c reduced: " + json.dumps(cuts))
+    log("phase 15c archs at full width: " + json.dumps(rows)
+        + f"; {time.perf_counter() - t0:.1f} s")
+    log(f"phase 15: {time.perf_counter() - t_start:.1f} s")
 
 
 def main() -> int:

@@ -1,1 +1,3 @@
-"""GNN models (reference: ``repro/models``)."""
+"""Model definitions: the paper's GNNs and the 10 assigned LM
+architectures (reference: ``repro/models``)."""
+from . import gnn, layers, moe, ssm, transformer

@@ -1,9 +1,17 @@
-"""GNN serving (reference: ``repro/serve``).
+"""Serving: the GNN and token tiers (reference: ``repro/serve``).
 
 ``session_core`` — shared calibrate/bucketed-serve machinery, including the
                    PreparedBatch extract-stage objects and the multi-bucket
                    co-launch (``launch_prepared_many``).
-``adapters``     — ModelFamilyAdapter seam (GNNAdapter).
+``adapters``     — ModelFamilyAdapter seam: GNNAdapter + TokenAdapter
+                   implement quantize / upload / serve body / bucket
+                   shaping / program key per family.
+``token_session``— TokenSession / TokenStore: chunked autoregressive
+                   decode over the serving core (binary transformer +
+                   SSM + MoE), pow2-bucketed cache lengths.
+``token_engine`` — TokenServeEngine: the LLM decode path on the same
+                   scheduler as the GNN engines (admission, cost, spans).
+``engine``       — DEPRECATED compatibility shim over ``token_session``.
 ``gnn_session``  — GraphStore / CompiledGraphSession artifacts.
 ``gnn_engine``   — GNNServeEngine: micro-batched node-query engine over
                    compiled sessions; two-stage extract/compute pipeline
@@ -27,10 +35,8 @@
 ``replica``      — fault-tolerant replica tier: FrontDoor routing with
                    health-checked failover, deterministic fault injection,
                    live reshard (see ``repro_torch.serve.replica``).
-
-The token tier (token sessions and engine) is not ported.
 """
-from .adapters import GNNAdapter, ModelFamilyAdapter
+from .adapters import GNNAdapter, ModelFamilyAdapter, TokenAdapter
 from .admission import (AdmissionController, AdmissionDecision,
                         DEFAULT_TENANT, TenantPolicy)
 from .cost import CostEstimate, CostEstimator, spearman_rho
@@ -43,6 +49,8 @@ from .session_core import ArtifactError, SessionPlan
 from .sharded import (ShardedGraphSession, ShardedServeEngine, ShardPlan,
                       ShardPlanner)
 from .slo import SLOPolicy, SLOTracker
+from .token_engine import TokenQuery, TokenServeEngine
+from .token_session import TokenPreparedBatch, TokenSession, TokenStore
 from .trace import (BatchTrace, RecompileWatchdog, SpanTracer,
                     TransferWatchdog, WarningEvent)
 from .replica import (FaultInjector, FrontDoor, HealthMonitor,
@@ -60,7 +68,9 @@ __all__ = [
     "CostEstimate", "CostEstimator", "spearman_rho",
     "SLOPolicy", "SLOTracker",
     "ArtifactError", "DrainReport", "QueryFailure",
-    "ModelFamilyAdapter", "GNNAdapter",
+    "ModelFamilyAdapter", "GNNAdapter", "TokenAdapter",
+    "TokenSession", "TokenStore", "TokenPreparedBatch",
+    "TokenServeEngine", "TokenQuery",
     "FaultInjector", "InjectedFault", "FrontDoor", "ReplicaHandle",
     "RoutedQuery", "build_replica", "HealthMonitor", "HealthPolicy",
     "Resharder", "ReshardReport",

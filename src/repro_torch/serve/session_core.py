@@ -587,8 +587,9 @@ class ServeCore:
     Node and FRDC group counts are padded up to pow2 marks that only ever
     grow (capped at ``node_cap``), so serving converges to one steady padded
     shape after a short warmup. ``compile_count`` counts the distinct padded
-    shape keys launched — where the reference's jit would trace — and IS the
-    verification counter; ``on_trace(shape)`` fires on each new one.
+    shape keys launched (``adapter.program_key``) — where the reference's
+    jit would trace — and IS the verification counter; ``on_trace(shape)``
+    fires on each new one with ``adapter.trace_shape``.
     """
 
     NODE_BUCKET_FLOOR = 64
@@ -636,11 +637,8 @@ class ServeCore:
         return t.pin_memory().to(self.device, non_blocking=True)
 
     def _serve_one(self, staged: "StagedBatch", bn):
-        x = self._upload(staged.x_pad)
-        adjs = {k: {f: self._upload(v) for f, v in a.items()}
-                for k, a in staged.adjs.items()}
-        pos = self._upload(staged.pos_pad)
-        return self.adapter.serve_body(self, x, bn, adjs, pos)
+        x, operands, pos = self.adapter.upload(self, staged)
+        return self.adapter.serve_body(self, x, bn, operands, pos)
 
     def _pad_mats(self, mats: Dict[str, frdc.FRDCMatrix], n_sub: int):
         return self.adapter.pad_operands(self, mats, n_sub)
@@ -664,7 +662,7 @@ class ServeCore:
         launch the bucketed forward; returns before the device finishes, so
         the caller can overlap the next batch's extraction with it."""
         shape = self.adapter.trace_shape(staged)
-        new = self._new_program(shape)
+        new = self._new_program(self.adapter.program_key(staged, bn))
         self.n_dispatches += 1
         out = self._serve_one(staged, bn)
         if new and self.on_trace is not None:

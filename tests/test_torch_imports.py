@@ -17,6 +17,7 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 def _port_files():
     assert (ROOT / "src" / "repro_torch" / "optim" / "optimizer.py").is_file()
+    assert (ROOT / "src" / "repro_torch" / "serve" / "token_engine.py").is_file()
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 
@@ -42,7 +43,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.models.gnn, repro_torch.kernels.ops, "
             "repro_torch.serve.sharded, repro_torch.graphs.partition, "
             "repro_torch.optim, repro_torch.graphs.sampling, "
-            "repro_torch.serve.replica; "
+            "repro_torch.serve.replica, repro_torch.configs, "
+            "repro_torch.models.transformer, repro_torch.quant, "
+            "repro_torch.serve.token_engine, repro_torch.serve.engine; "
             "from repro_torch.serve.sharded.planner import validate_reshard; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
@@ -63,7 +66,8 @@ def test_entry_points_default_to_the_card():
         mods = {m: importlib.import_module(f"repro_torch.{m}") for m in (
             "serve.gnn_session", "serve.sharded.session",
             "serve.sharded.executor", "graphs.partition",
-            "serve.replica.router")}
+            "serve.replica.router", "serve.token_session",
+            "serve.engine", "models.transformer")}
     finally:
         sys.path.remove(str(ROOT / "src"))
     entries = [
@@ -74,6 +78,11 @@ def test_entry_points_default_to_the_card():
         mods["serve.sharded.executor"].HostLayerExecutor.__init__,
         mods["graphs.partition"].partition_rows,
         mods["serve.replica.router"].build_replica,
+        mods["serve.token_session"].TokenSession.__init__,
+        mods["serve.token_session"].TokenStore.__init__,
+        mods["serve.engine"].ServeEngine.__init__,
+        mods["models.transformer"].init_params,
+        mods["models.transformer"].init_cache,
     ]
     for fn in entries:
         assert inspect.signature(fn).parameters["device"].default == "cuda", \
