@@ -158,6 +158,27 @@ result):
    decode step (host clock and CUDA events), the device's idle share over
    one chunk (torch.profiler), fp and packed parameter bytes, peak memory
    and the phase's seconds.
+16. LM training (``run_lm_train``) — no GNN kernel runs here either. (a)
+   ``smollm-135m`` at full width (30 layers, d 576, vocab 49,152, bf16),
+   weights from a ``torch.Generator`` on the card, through ``Trainer`` with
+   ``launch/train.py``'s recipe (AdamW on a cosine schedule, peak 3e-3,
+   clip 1.0; ``SyntheticLM(vocab, 128)``, batch 8; a checkpoint every 25
+   steps) for 60 steps, with a ``FailureInjector`` at step 30 under
+   ``run_with_restarts``: one restart, the resumed run 35 steps from step
+   25, the state it restores bit-equal to the one saved at 25, every leaf
+   float32 after step 1 (the reference's AdamW promotion), the mean loss
+   of the last 5 steps below the first 5 less 0.1
+   (``tests/test_distribution.py``'s rule). Prints ms a step (host clock
+   and CUDA events; step 21 under torch.profiler for the device's busy ms
+   and launches, step 22 with its AdamW update timed alone), the idle
+   share, the checkpoint save calls and the restore in seconds, and peak
+   memory. (b) one loss and gradient step of each block family
+   (smollm-135m, qwen2-moe-a2.7b, zamba2-1.2b, rwkv6-3b,
+   seamless-m4t-medium) at full width, cut in depth as in 15 (c) (a
+   ``reduced`` line lists the cuts): finite loss, finite gradient norm
+   above 0. (c) ``block_remat`` on (a)'s config, one loss and gradient
+   step: the loss bit-equal to the plain forward's, every gradient leaf
+   within 1e-2 of its max |g|, both peak-memory readings.
 
 Output: a JSON line with one record per kernel, the card's name and power
 limit from nvidia-smi, and last the line
@@ -231,6 +252,19 @@ TOKEN_TOL = 0.15           # phase 15: the reference's forward-vs-decode rule
 # (zamba2's shared attention block runs at every 6th layer, so 6 layers)
 TOKEN_DEPTH = {"zamba2-1.2b": dict(n_layers=6),
                "seamless-m4t-medium": dict(enc_layers=2, dec_layers=2)}
+LM_ARCH = "smollm-135m"    # phase 16: the LM trained at full width
+LM_STEPS = 60              # phase 16 (a): total steps of the run
+LM_FAIL_AT = 30            # phase 16 (a): the injected failure's step
+LM_CKPT_EVERY = 25         # phase 16 (a): launch/train.py's interval
+LM_BATCH, LM_SEQ = 8, 128  # phase 16 (a): launch/train.py's defaults
+LM_LR = 3e-3               # phase 16 (a): launch/train.py's peak lr
+LM_DROP = 0.1              # phase 16 (a): tests/test_distribution.py's rule
+LM_PROFILE_STEP = 20       # phase 16 (a): the step run under torch.profiler,
+                           # the next with its AdamW update timed alone
+GRAD_ARCHS = ("smollm-135m", "qwen2-moe-a2.7b", "zamba2-1.2b", "rwkv6-3b",
+              "seamless-m4t-medium")   # phase 16 (b): every block family
+GRAD_B, GRAD_T = 2, 32     # phase 16 (b): tests/test_arch_smoke.py's batch
+REMAT_TOL = 1e-2           # phase 16 (c): remat grads, of each leaf's max |g|
 # phase 13: model -> (training forward, family, adjacency kinds, epochs, lr),
 # the recipes of benchmarks/accuracy_experiment.py
 TRAIN = {"FP32": ("gcn_forward_fp", "gcn", ("gcn",), 150, 1e-2),
@@ -729,6 +763,7 @@ def run(torch) -> dict:
         rec["launches"] += sum(ls.get(rec["name"], 0) for ls in (
             engine_launches, train_launches, replica_launches))
     run_token(torch)
+    run_lm_train(torch)
     return {"kernels": records}
 
 
@@ -2731,6 +2766,277 @@ def run_token(torch) -> None:
     log("phase 15c archs at full width: " + json.dumps(rows)
         + f"; {time.perf_counter() - t0:.1f} s")
     log(f"phase 15: {time.perf_counter() - t_start:.1f} s")
+
+
+def run_lm_train(torch) -> None:
+    """Phase 16: LM training on the card (see the module docstring).
+    Launches none of the GNN kernels; a failed check raises."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.data.pipeline import PrefetchLoader, SyntheticLM
+    from repro_torch.models import transformer
+    from repro_torch.optim.optimizer import AdamW, cosine_schedule, tree_leaves
+    from repro_torch.train.train_step import (make_loss_fn, make_train_step,
+                                              value_and_grad)
+    from repro_torch.train.trainer import (FailureInjector, Trainer,
+                                           TrainerConfig, run_with_restarts)
+
+    t_start = time.perf_counter()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        if isinstance(tree, (list, tuple)):
+            return [x for v in tree for x in leaves(v)]
+        return [tree]
+
+    # -- 16a. smollm-135m at full width through Trainer ---------------------
+    cfg = token_config(LM_ARCH)
+    rec = dict(losses=[], host_ms=[], event_ms=[], save_s=[], dtypes=None,
+               update_ms=[])
+
+    class TimedAdamW(AdamW):
+        """The recipe's AdamW; in one steady step it also times the
+        update alone (a synchronize before and after it)."""
+
+        def update(self, grads, state, params):
+            if not rec.get("split"):
+                return super().update(grads, state, params)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super().update(grads, state, params)
+            torch.cuda.synchronize()
+            rec["update_ms"].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+    opt = TimedAdamW(lr=cosine_schedule(LM_LR, 10, LM_STEPS), clip_norm=1.0)
+    step = make_train_step(cfg, opt, unroll=False)
+    saved = {}
+
+    def timed_step(params, opt_state, batch):
+        n = len(rec["losses"])
+        if n == LM_PROFILE_STEP and "profile" not in rec:
+            return profiled_step(params, opt_state, batch)
+        rec["split"] = n == LM_PROFILE_STEP + 1 and not rec["update_ms"]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        params, opt_state, metrics = step(params, opt_state, batch)
+        end.record()
+        rec["losses"].append(float(metrics["loss"]))   # syncs, as Trainer
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+        if rec["split"]:    # its update synchronized: left out of medians
+            rec["split"] = False
+            rec["split_step"] = dict(step_host_ms=host,
+                                     update_host_ms=rec["update_ms"][-1])
+            host = float("nan")
+        rec["host_ms"].append(host)
+        rec["event_ms"].append(start.elapsed_time(end))
+        if rec["dtypes"] is None:     # after step 1
+            rec["dtypes"] = sorted({str(x.dtype) for x in leaves(
+                (params, opt_state.mu, opt_state.nu))})
+        return params, opt_state, metrics
+
+    def profiled_step(params, opt_state, batch):
+        """One steady step under torch.profiler: the device's busy ms and
+        launches (the profiler slows the host: this step is left out of
+        the medians, and the idle share is taken against them)."""
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            params, opt_state, metrics = step(params, opt_state, batch)
+            rec["losses"].append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+        busy, n_dev = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                busy += (e.device_time_total
+                         if hasattr(e, "device_time_total")
+                         else e.cuda_time_total)
+                n_dev += e.count
+        rec["profile"] = dict(step=len(rec["losses"]),
+                              device_busy_ms=busy / 1e3, device_ops=n_dev)
+        rec["host_ms"].append(float("nan"))
+        rec["event_ms"].append(float("nan"))
+        return params, opt_state, metrics
+
+    def init_state():
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        params = transformer.init_params(cfg, gen, DEVICE)
+        return params, opt.init(params), ()
+
+    ckpt_dir = tempfile.mkdtemp(prefix="lm_ckpt_")
+    loaders, restored = [], {}
+
+    def make_trainer():
+        loader = PrefetchLoader(SyntheticLM(cfg.vocab, LM_SEQ), LM_BATCH)
+        loaders.append(loader)
+        tr = Trainer(cfg, timed_step, init_state, loader, ckpt_dir,
+                     TrainerConfig(total_steps=LM_STEPS,
+                                   ckpt_every=LM_CKPT_EVERY, log_every=10),
+                     failer=FailureInjector(LM_FAIL_AT if len(loaders) == 1
+                                            else -1), device=DEVICE)
+        save = tr.ckpt.save
+
+        def recording_save(n, state, blocking=False):
+            if n == LM_CKPT_EVERY:
+                saved[n] = [x.clone() for x in leaves(state)]
+            t0 = time.perf_counter()
+            save(n, state, blocking)
+            rec["save_s"].append((n, blocking, time.perf_counter() - t0))
+
+        tr.ckpt.save = recording_save
+        if len(loaders) == 2:          # the restore the resumed run makes
+            t0 = time.perf_counter()
+            *state, start = tr._fresh_or_restored()
+            torch.cuda.synchronize()
+            restored.update(s=time.perf_counter() - t0, start=start,
+                            leaves=leaves(state))
+        return tr
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        out = run_with_restarts(make_trainer, max_failures=1)
+    finally:
+        for loader in loaders:
+            loader.close()
+    train_s = time.perf_counter() - t0
+    peak_a = torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(x.numel() for x in leaves(init_state()[0]))
+    ok_restore = (restored.get("start") == LM_CKPT_EVERY
+                  and len(restored["leaves"]) == len(saved[LM_CKPT_EVERY])
+                  and all(a.dtype == b.dtype and torch.equal(a, b) for a, b
+                          in zip(restored["leaves"], saved[LM_CKPT_EVERY])))
+    shutil.rmtree(ckpt_dir)
+    losses = rec["losses"]
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    steady = [rec["host_ms"][i] for i in range(3, LM_FAIL_AT)
+              if not np.isnan(rec["host_ms"][i])]
+    steady_ev = [rec["event_ms"][i] for i in range(3, LM_FAIL_AT)
+                 if not np.isnan(rec["host_ms"][i])]
+    busy = rec["profile"]["device_busy_ms"]
+    log(f"phase 16a {LM_ARCH}: " + json.dumps(dict(
+        card=card, layers=cfg.n_layers, d_model=cfg.d_model, heads=[cfg.n_heads,
+                                                         cfg.n_kv_heads],
+        vocab=cfg.vocab, dtype=cfg.dtype, params=n_params, batch=LM_BATCH,
+        seq=LM_SEQ, steps_run=len(losses), restarts=out["restarts"],
+        resumed_steps=out["steps"], restored_at=restored.get("start"),
+        restore_bit_equal=ok_restore, dtypes_after_step_1=rec["dtypes"],
+        loss_first5=first, loss_last5=last, final_loss=out["final_loss"],
+        ms_per_step_host=statistics.median(steady),
+        ms_per_step_events=statistics.median(steady_ev),
+        profiled_step=rec["profile"],
+        idle_share=(max(0.0, 1.0 - busy / statistics.median(steady))
+                    if busy else None),
+        update_split=rec["split_step"],
+        first_step_ms_host=rec["host_ms"][0],
+        save_calls_s=rec["save_s"], restore_s=restored.get("s"),
+        peak_gib=peak_a, train_s=train_s)))
+    if not (out["restarts"] == 1
+            and out["steps"] == LM_STEPS - LM_CKPT_EVERY
+            and len(losses) == LM_FAIL_AT + LM_STEPS - LM_CKPT_EVERY):
+        raise AssertionError(f"phase 16a: {out['restarts']} restarts, "
+                             f"{out['steps']} resumed steps, {len(losses)} "
+                             f"steps in all")
+    if not ok_restore:
+        raise AssertionError("phase 16a: the state restored at step "
+                             f"{LM_CKPT_EVERY} differs from the one saved")
+    if rec["dtypes"] != ["torch.float32"]:
+        raise AssertionError(f"phase 16a: leaves after step 1 are "
+                             f"{rec['dtypes']}, want float32 (the reference)")
+    if not (np.isfinite(losses).all() and last < first - LM_DROP):
+        raise AssertionError(f"phase 16a: loss {first:.4f} -> {last:.4f}, "
+                             f"want a drop of more than {LM_DROP}")
+    del saved[LM_CKPT_EVERY], restored["leaves"]
+    torch.cuda.empty_cache()
+
+    # -- 16b. one loss and gradient step of every block family --------------
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 16)
+    cuts, rows = {}, {}
+    for name in GRAD_ARCHS:
+        t1 = time.perf_counter()
+        full = token_config(name)
+        cut = TOKEN_DEPTH.get(name, dict(n_layers=2))
+        gcfg = dataclasses.replace(full, **cut)
+        cuts[name] = {k: f"{getattr(full, k)} -> {v}" for k, v in cut.items()}
+        torch.cuda.reset_peak_memory_stats()
+        params = transformer.init_params(gcfg, gen, DEVICE)
+        tokens = torch.randint(0, gcfg.vocab, (GRAD_B, GRAD_T), generator=gen,
+                               device=DEVICE, dtype=torch.int32)
+        batch = {"tokens": tokens,
+                 "labels": torch.roll(tokens, -1, dims=1)}
+        if gcfg.is_encdec:
+            batch["frames"] = torch.randn(
+                (GRAD_B, gcfg.frontend_len, gcfg.frontend_dim),
+                generator=gen, device=DEVICE)
+        loss, grads = value_and_grad(make_loss_fn(gcfg, unroll=True,
+                                                  q_chunk=0))(params, batch)
+        gnorm = float(torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                     for g in tree_leaves(grads))))
+        rows[name] = dict(loss=float(loss), grad_norm=gnorm,
+                          leaves=len(tree_leaves(grads)),
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                          s=time.perf_counter() - t1)
+        if not (np.isfinite(float(loss)) and np.isfinite(gnorm)
+                and gnorm > 0):
+            raise AssertionError(f"phase 16b {name}: loss {float(loss)}, "
+                                 f"gradient norm {gnorm}")
+        del params, grads
+        torch.cuda.empty_cache()
+    log("phase 16b reduced: " + json.dumps(cuts))
+    log(f"phase 16b loss and gradient step, full width ({card}): "
+        + json.dumps(rows) + f"; {time.perf_counter() - t0:.1f} s")
+
+    # -- 16c. block_remat on (a)'s config, one step --------------------------
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    params = transformer.init_params(cfg, gen, DEVICE)
+    sample = SyntheticLM(cfg.vocab, LM_SEQ).sample(
+        np.random.default_rng(SEED), LM_BATCH)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in sample.items()}
+    res = {}
+    for remat in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss, grads = value_and_grad(make_loss_fn(
+            cfg, unroll=False, q_chunk=0, block_remat=remat))(params, batch)
+        torch.cuda.synchronize()
+        res[remat] = (loss, tree_leaves(grads),
+                      (torch.cuda.max_memory_allocated() - base) / 2**30)
+    rel = [float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+           for a, b in zip(res[True][1], res[False][1])]
+    n_equal = sum(torch.equal(a, b) for a, b in zip(res[True][1],
+                                                    res[False][1]))
+    log(f"phase 16c block_remat, {LM_ARCH}: " + json.dumps(dict(
+        card=card, loss=float(res[False][0]),
+        loss_bit_equal=bool(torch.equal(res[True][0], res[False][0])),
+        grad_leaves=len(rel), grad_leaves_bit_equal=n_equal,
+        grad_max_rel_diff=max(rel), tol=REMAT_TOL,
+        peak_gib_above_params_plain=res[False][2],
+        peak_gib_above_params_remat=res[True][2]))
+        + f"; {time.perf_counter() - t0:.1f} s")
+    if not torch.equal(res[True][0], res[False][0]) or max(rel) > REMAT_TOL:
+        raise AssertionError(f"phase 16c: remat loss {float(res[True][0])} "
+                             f"vs {float(res[False][0])}, grads max rel "
+                             f"diff {max(rel)}")
+    del params, res, grads
+    torch.cuda.empty_cache()
+    log(f"phase 16: {time.perf_counter() - t_start:.1f} s ({card})")
 
 
 def main() -> int:

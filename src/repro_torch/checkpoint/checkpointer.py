@@ -11,6 +11,11 @@ NamedTuple fields as ``.<field>``, sequence items as their index; ``None``
 holds no leaf. So a checkpoint written by either package lists the same
 keys and restores in the other. Saves run on a background thread;
 :meth:`Checkpointer.wait` joins it.
+
+numpy has no bfloat16: the reference's ``np.savez`` writes a bf16 leaf as
+a 2-byte void (``|V2``) holding its bits, and so does :meth:`save` here.
+:meth:`Checkpointer.restore` turns such a leaf back into a bf16 tensor
+where the matching leaf of ``like`` is bf16.
 """
 from __future__ import annotations
 
@@ -79,8 +84,25 @@ def _unflatten(structure: Any, leaves: list) -> Any:
 
 def _host(leaf):
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:   # the bits, as a 2-byte void
+            return leaf.view(torch.int16).numpy().view(np.dtype("V2"))
+        return leaf.numpy()
     return np.asarray(leaf)
+
+
+def _from_host(stored: np.ndarray, like_leaf):
+    """A stored array as :meth:`Checkpointer.restore` returns it: a bf16
+    tensor for a 2-byte void under a bf16 leaf of ``like``, else itself."""
+    if stored.dtype.kind != "V":
+        return stored
+    if stored.dtype.itemsize != 2 or not (
+            isinstance(like_leaf, torch.Tensor)
+            and like_leaf.dtype == torch.bfloat16):
+        raise ValueError(f"a stored {stored.dtype} leaf restores only into "
+                         f"a bfloat16 leaf, not {type(like_leaf).__name__}")
+    return torch.from_numpy(stored.view(np.int16).copy()).view(
+        torch.bfloat16)
 
 
 class Checkpointer:
@@ -136,7 +158,8 @@ class Checkpointer:
 
     def restore(self, step: Optional[int], like: Any) -> Any:
         """Restore into the structure of ``like``; leaves come back as numpy
-        arrays with the stored dtypes."""
+        arrays with the stored dtypes, and a stored bf16 leaf (a 2-byte
+        void) as a bf16 CPU tensor where ``like``'s leaf is bf16."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -145,7 +168,8 @@ class Checkpointer:
         manifest = json.loads((out / "manifest.json").read_text())
         data = np.load(out / manifest["shards"][0])
         leaves = [data[f"a{i}"] for i in range(manifest["n_leaves"])]
-        keys, _, structure = _flatten(like)
+        keys, like_leaves, structure = _flatten(like)
         if keys != manifest["keys"]:
             raise ValueError("checkpoint/model structure mismatch")
-        return _unflatten(structure, leaves)
+        return _unflatten(structure, [_from_host(v, l) for v, l in
+                                      zip(leaves, like_leaves)])

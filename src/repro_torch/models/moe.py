@@ -98,7 +98,7 @@ def moe_block(params, x: torch.Tensor, cfg: ModelConfig):
     if getattr(cfg, "moe_groups", 0) == -1:
         raise NotImplementedError(
             "moe_groups=-1 (the reference's shard_map MoE) needs a device "
-            "mesh; it comes with the SPMD executor (ROADMAP Q1-5)")
+            "mesh; it comes with the SPMD executor (ROADMAP Q1-3)")
     if getattr(cfg, "moe_groups", 0) > 1:
         return _moe_grouped(params, x, cfg)
     b, t, d = x.shape

@@ -9,8 +9,10 @@ stub supplies patch embeddings, projector in-model).
 
 The blocks run as a Python loop over layers. ``unroll=False`` (the
 reference's ``lax.scan`` over stacked layers) is accepted and computes the
-same thing. ``block_remat`` (a training feature) and the sharding
-constraints (which need a device mesh) raise ``NotImplementedError``.
+same thing. ``block_remat`` recomputes each decoder block in the backward
+pass (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
+around a block); the sharding constraints need a device mesh and raise
+``NotImplementedError``.
 
 Decode positions are host ints, and the attention caches are updated in
 place (see ``layers``). Parameter and cache trees move between the packages
@@ -23,6 +25,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
 from . import layers, moe as moe_mod, ssm
@@ -271,14 +274,16 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
             unroll: bool = True, q_chunk: int = 0,
             block_remat: bool = False, boundary_sharding=None,
             logits_sharding=None) -> torch.Tensor:
-    """tokens (B, T_text) -> logits (B, T_total, vocab_padded)."""
-    if block_remat:
-        raise NotImplementedError(
-            "block_remat is a training feature; LM training comes with "
-            "ROADMAP Queue 1 item 8 (Slice F)")
+    """tokens (B, T_text) -> logits (B, T_total, vocab_padded).
+
+    ``block_remat``: each decoder block runs under
+    ``torch.utils.checkpoint`` (non-reentrant), so the backward pass keeps
+    only the block boundaries and recomputes the rest, as the reference's
+    ``jax.checkpoint`` around a block does. The encoder's blocks are not
+    wrapped, as in the reference."""
     if boundary_sharding is not None or logits_sharding is not None:
         raise NotImplementedError(
-            "sharding constraints need a device mesh (ROADMAP Q1-5)")
+            "sharding constraints need a device mesh (ROADMAP Q1-3)")
     x = embed(params["embed"], tokens)
     if cfg.family == "vlm":
         if image_embeds is None:
@@ -299,11 +304,18 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
 
     pattern = _pattern(cfg)
     shared = params.get("shared_attn")
+
+    def blockfn(bp, h, kind, ekv):
+        return _apply_block(bp, kind, h, positions, cfg, unroll, q_chunk,
+                            shared=shared, enc_memory_kv=ekv)[0]
+
     for i, bp in enumerate(params["blocks"]):
-        x, _ = _apply_block(bp, pattern[i], x, positions, cfg, unroll,
-                            q_chunk, shared=shared,
-                            enc_memory_kv=None if enc_kv is None
-                            else enc_kv[i])
+        ekv = None if enc_kv is None else enc_kv[i]
+        if block_remat:
+            x = torch.utils.checkpoint.checkpoint(
+                blockfn, bp, x, pattern[i], ekv, use_reentrant=False)
+        else:
+            x = blockfn(bp, x, pattern[i], ekv)
     x = rmsnorm(x, params["final_ln"]["scale"])
     return lm_head(params["embed"], x, cfg.vocab)
 

@@ -8,6 +8,16 @@ not ``torch.optim.AdamW``'s: the weight decay sits inside the ``lr *``
 term, and the bias corrections ``1 - b ** step`` are taken in float32 from
 a step counter that stays on the parameters' device, so a training loop
 reads nothing back from the card.
+
+The leaf dtypes follow JAX's promotion, which the reference's training
+relies on: a 0-d float32 array there is not weakly typed, so the clip
+scale and the bias corrections (and a scheduled ``lr``) lift bf16 leaves
+to float32, while a Python float takes the leaf's dtype. torch treats a
+0-d tensor like a scalar and would keep bf16, so :func:`_promote` lifts
+the leaf where a 0-d tensor enters and :func:`_weak` casts a Python float
+to a low-precision leaf's dtype. bf16 parameters therefore come back
+float32 after one step, and ``mu`` / ``nu`` float32 when clipping is on,
+as in the reference; float32 trees are unchanged.
 """
 from __future__ import annotations
 
@@ -34,6 +44,19 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
             return type(tree)(*items)
         return type(tree)(items)
     raise TypeError(f"not a tree of tensors: {type(tree).__name__}")
+
+
+def _promote(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """``x`` in the dtype JAX gives ``x`` op a strongly typed 0-d ``s``."""
+    return x.to(torch.promote_types(x.dtype, s.dtype))
+
+
+def _weak(c: float, x: torch.Tensor):
+    """A Python float as JAX's weak type meets ``x``: in ``x``'s dtype.
+    torch would compute a bf16 op against the float itself."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return torch.tensor(c, dtype=x.dtype, device=x.device)
+    return c
 
 
 def tree_leaves(tree: Tree) -> list:
@@ -77,21 +100,22 @@ class AdamW:
         if self.clip_norm is not None:
             gnorm = global_norm(grads)
             scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
-            grads = tree_map(lambda g: g * scale, grads)
+            grads = tree_map(lambda g: _promote(g, scale) * scale, grads)
         b1, b2 = self.b1, self.b2
-        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
-        nu = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g, state.nu,
-                      grads)
+        mu = tree_map(lambda m, g: _weak(b1, m) * m + _weak(1 - b1, g) * g,
+                      state.mu, grads)
+        nu = tree_map(lambda v, g: _weak(b2, v) * v
+                      + _weak(1 - b2, g) * g * g, state.nu, grads)
         t = step.to(torch.float32)
         bc1 = 1 - b1 ** t
         bc2 = 1 - b2 ** t
         lr = self._lr(step)
 
         def upd(p, m, v):
-            mhat = m / bc1
-            vhat = v / bc2
+            mhat = _promote(m, bc1) / bc1
+            vhat = _promote(v, bc2) / bc2
             return p - lr * (mhat / (torch.sqrt(vhat) + self.eps)
-                             + self.weight_decay * p)
+                             + _weak(self.weight_decay, p) * p)
 
         return tree_map(upd, params, mu, nu), AdamWState(step=step, mu=mu,
                                                          nu=nu)

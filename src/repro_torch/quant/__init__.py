@@ -1,3 +1,3 @@
 """BitGNN bit-packed linears for the LM models (reference:
-``repro/quant``; ``grad_compress`` comes with training, Slice F)."""
+``repro/quant``) and 1-bit gradient compression (``grad_compress``)."""
 from . import binary_linear

@@ -1,0 +1,127 @@
+"""Train-step builder: loss, gradients, AdamW update (reference:
+``repro/train/train_step.py``).
+
+The reference differentiates with ``jax.value_and_grad`` under ``jit``;
+here the step runs eagerly and :func:`value_and_grad` takes the gradients
+with ``torch.autograd`` over copies of the parameter leaves marked
+``requires_grad``, returned as a tree in the parameters' structure (a leaf
+the loss does not reach gets zeros, as in JAX). Like ``jax.value_and_grad``
+it refuses a tree with integer leaves, such as the bit-packed
+``{"packed", "scale"}`` projections of ``quant.binary_linear``, with
+``TypeError``: there is no quantized training in either package.
+
+The reference's ``input_specs`` (the abstract inputs of a dry-run cell)
+belongs to the dry run and comes with it (ROADMAP Slice F-b).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from ..models import transformer
+from ..optim.optimizer import AdamW, AdamWState, tree_leaves, tree_map
+from ..quant import grad_compress as gc
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy, the log-softmax in float32."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    return torch.mean(nll)
+
+
+def value_and_grad(loss_fn: Callable) -> Callable:
+    """``(params, *args) -> (loss, grads)``: the loss detached and the
+    gradient of every leaf of ``params``, in its structure and dtype."""
+    def vg(params, *args):
+        for leaf in tree_leaves(params):
+            if not (leaf.is_floating_point() or leaf.is_complex()):
+                raise TypeError(
+                    "grad requires real- or complex-valued inputs, but got "
+                    f"{leaf.dtype} (bit-packed parameters cannot be "
+                    "trained)")
+        with torch.enable_grad():
+            leaves = tree_map(lambda x: x.detach().requires_grad_(True),
+                              params)
+            loss = loss_fn(leaves, *args)
+            flat = tree_leaves(leaves)
+            grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        by_leaf = {id(x): torch.zeros_like(x) if g is None else g
+                   for x, g in zip(flat, grads)}
+        return loss.detach(), tree_map(lambda x: by_leaf[id(x)], leaves)
+    return vg
+
+
+def make_loss_fn(cfg: ModelConfig, unroll: bool, q_chunk: int,
+                 block_remat: bool = False, boundary_sharding=None,
+                 logits_sharding=None) -> Callable:
+    def loss_fn(params, batch):
+        kw = {k: batch[k] for k in ("image_embeds", "frames") if k in batch}
+        logits = transformer.forward(params, cfg, batch["tokens"],
+                                     unroll=unroll, q_chunk=q_chunk,
+                                     block_remat=block_remat,
+                                     boundary_sharding=boundary_sharding,
+                                     logits_sharding=logits_sharding, **kw)
+        labels = batch["labels"]
+        # align labels with the (possibly frontend-prefixed) logit sequence:
+        # 0 on the left, and the pad counts in the mean, as in the reference
+        t_total = logits.shape[1]
+        if labels.shape[1] < t_total:
+            labels = F.pad(labels, (t_total - labels.shape[1], 0))
+        return softmax_xent(logits, labels)
+    return loss_fn
+
+
+def make_train_step(cfg: ModelConfig, opt: AdamW, unroll: bool = False,
+                    q_chunk: int = 0, compress_grads: bool = False,
+                    remat: bool = False, boundary_sharding=None,
+                    logits_sharding=None) -> Callable:
+    """Returns train_step(params, opt_state, [err_state,] batch) -> ...
+
+    ``compress_grads``: 1-bit sign+scale gradient compression with error
+    feedback (``quant.grad_compress``), carrying ``err_state``. ``remat``:
+    per-block activation checkpointing. The step returns new trees; the
+    caller rebinds them (the reference donates its buffers under jit)."""
+    grad_fn = value_and_grad(make_loss_fn(
+        cfg, unroll, q_chunk, block_remat=remat,
+        boundary_sharding=boundary_sharding,
+        logits_sharding=logits_sharding))
+
+    if not compress_grads:
+        def train_step(params, opt_state: AdamWState, batch):
+            loss, grads = grad_fn(params, batch)
+            params, opt_state = opt.update(grads, opt_state, params)
+            return params, opt_state, {"loss": loss}
+        return train_step
+
+    def train_step_c(params, opt_state: AdamWState, err_state, batch):
+        loss, grads = grad_fn(params, batch)
+        grads, err_state = gc.compress_tree(grads, err_state)
+        params, opt_state = opt.update(grads, opt_state, params)
+        return params, opt_state, err_state, {"loss": loss}
+    return train_step_c
+
+
+def make_serve_step(cfg: ModelConfig) -> Callable:
+    """``serve_step(params, cache, tokens, pos) -> (logits, cache)``, one
+    decode step at the host-int position ``pos``."""
+    @torch.no_grad()
+    def serve_step(params, cache, tokens, pos):
+        return transformer.decode_step(params, cfg, cache, tokens, pos)
+    return serve_step
+
+
+def make_prefill_step(cfg: ModelConfig, q_chunk: int = 2048,
+                      boundary_sharding=None,
+                      logits_sharding=None) -> Callable:
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        kw = {k: batch[k] for k in ("image_embeds", "frames") if k in batch}
+        return transformer.forward(params, cfg, batch["tokens"],
+                                   unroll=True, q_chunk=q_chunk,
+                                   boundary_sharding=boundary_sharding,
+                                   logits_sharding=logits_sharding, **kw)
+    return prefill_step

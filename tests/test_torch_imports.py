@@ -18,6 +18,10 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 def _port_files():
     assert (ROOT / "src" / "repro_torch" / "optim" / "optimizer.py").is_file()
     assert (ROOT / "src" / "repro_torch" / "serve" / "token_engine.py").is_file()
+    for rel in ("data/pipeline.py", "quant/grad_compress.py",
+                "train/train_step.py", "train/trainer.py", "launch/train.py",
+                "launch/serve.py"):
+        assert (ROOT / "src" / "repro_torch" / rel).is_file(), rel
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 
@@ -45,7 +49,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.optim, repro_torch.graphs.sampling, "
             "repro_torch.serve.replica, repro_torch.configs, "
             "repro_torch.models.transformer, repro_torch.quant, "
-            "repro_torch.serve.token_engine, repro_torch.serve.engine; "
+            "repro_torch.serve.token_engine, repro_torch.serve.engine, "
+            "repro_torch.data.pipeline, repro_torch.quant.grad_compress, "
+            "repro_torch.train.train_step, repro_torch.train.trainer, "
+            "repro_torch.launch.train, repro_torch.launch.serve; "
             "from repro_torch.serve.sharded.planner import validate_reshard; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
@@ -67,7 +74,7 @@ def test_entry_points_default_to_the_card():
             "serve.gnn_session", "serve.sharded.session",
             "serve.sharded.executor", "graphs.partition",
             "serve.replica.router", "serve.token_session",
-            "serve.engine", "models.transformer")}
+            "serve.engine", "models.transformer", "train.trainer")}
     finally:
         sys.path.remove(str(ROOT / "src"))
     entries = [
@@ -83,10 +90,21 @@ def test_entry_points_default_to_the_card():
         mods["serve.engine"].ServeEngine.__init__,
         mods["models.transformer"].init_params,
         mods["models.transformer"].init_cache,
+        mods["train.trainer"].Trainer.__init__,
     ]
     for fn in entries:
         assert inspect.signature(fn).parameters["device"].default == "cuda", \
             fn.__qualname__
+    # the launchers' --device flag
+    for name in ("train", "serve"):
+        path = ROOT / "src" / "repro_torch" / "launch" / f"{name}.py"
+        defaults = [kw.value.value
+                    for node in ast.walk(ast.parse(path.read_text()))
+                    if isinstance(node, ast.Call) and node.args
+                    and isinstance(node.args[0], ast.Constant)
+                    and node.args[0].value == "--device"
+                    for kw in node.keywords if kw.arg == "default"]
+        assert defaults == ["cuda"], (name, defaults)
 
 
 def test_chip_smoke_fails_without_card_or_checkout(tmp_path):
