@@ -84,7 +84,11 @@ result):
    the routed batch's p50 / p90 and extract split, and each sharded form
    of the fused layer (rows 7e-7h) at shard 0's padded shapes against its
    plain version (sign words bit-exact, fp within FP_TOL of the sum of
-   |terms|), with its bound, on events and device time.
+   |terms|), with its bound, on events and device time; the pair kernel
+   (``fused_pair``) alone on each pair form's transform against its plain
+   version, each form's step (transform + pair) and pair times, the
+   pair's bound, registers and occupancy, and one ``torch.sparse.mm`` of
+   [intra | halo] as its library yardstick.
 11-12. engines (see ``run_engine``).
 13. training — full Flickr at hidden 64, weights from a seeded numpy
    generator, the adjacencies sparse (``gnn.sparse_adjacency``: CSR and
@@ -220,12 +224,16 @@ REPLACES = {
                       "src/repro/kernels/bspmm_kernel.py:406"),
     "fused_layer": ("src/repro_torch/csrc/fused_layer.cu",
                     "src/repro/kernels/fused_layer.py:163"),
+    "fused_pair": ("src/repro_torch/csrc/fused_pair.cu",
+                   "src/repro/kernels/fused_layer.py:163"),
 }
-# the fused layer's sharded forms (rows 7e-7h): each kind with its halo
-# pair, and fc with BN by the reciprocal
+# the fused layer's sharded forms (rows 7e-7h): each kind's step with its
+# halo pair (the transform, then the pair kernel), and fc with BN by the
+# reciprocal
 PAIR_KINDS = ("gcn_bin_l1+halo", "gcn_bbf_fbf+halo", "branch_add+halo",
               "fc+rcp")
-REPLACES.update({f"fused_layer/{k}": REPLACES["fused_layer"]
+REPLACES.update({f"fused_layer/{k}": REPLACES["fused_pair" if "+halo" in k
+                                              else "fused_layer"]
                  for k in PAIR_KINDS})
 FORWARD_KERNELS = ("binarize_pack", "bmm_xnor", "bspmm_bits", "bspmm_fp")
 SERVE_KERNELS = ("bspmm_bits_grid", "bspmm_fp_grid", "fused_layer")
@@ -1370,6 +1378,49 @@ def layer1_words(torch, sess_u, sess_f, tol):
     return int(diff.sum()), int(reached.sum()), int(rows.sum())
 
 
+def pair_library(torch, fl, a, h, y, rem, ho, mag):
+    """(name, call) of the pair aggregation's library yardstick, one
+    ``torch.sparse.mm`` of the CSR of [intra | halo] (values: row scale
+    times column scale) with cat(y, rem) (+-1 float rows for sign words,
+    which gives the integer counts), after holding its result to the plain
+    pair's sums: counts equal, fp within FP_TOL of ``mag``."""
+    import numpy as np
+    from repro_torch.core import bitops, frdc
+    ra, ca = frdc.nonzero_coords(a)
+    rh, ch = frdc.nonzero_coords(h)
+    rows = np.concatenate([ra, rh])
+    cols = np.concatenate([ca, ch + y.shape[0]])
+    vals = np.ones(rows.size, np.float32)
+    if mag is not None:
+        def scale(t, n):
+            return np.ones(n, np.float32) if t is None else t.cpu().numpy()
+        col = np.concatenate([scale(a.col_scale, a.n_cols)[:y.shape[0]],
+                              np.pad(scale(h.col_scale, h.n_cols),
+                                     (0, max(0, rem.shape[0] - h.n_cols)))])
+        rs = scale(a.row_scale, a.n_tile_rows * 4)
+        rs = np.pad(rs, (0, a.n_tile_rows * 4 - rs.size))
+        vals = (rs[rows] * col[cols]).astype(np.float32)
+        operand = torch.cat([y, rem])
+        want = fl.agg_fp_pair(a, h, y, rem)
+    else:
+        operand = torch.cat([bitops.unpack_pm1(y, ho), bitops.unpack_pm1(rem, ho)])
+        want = fl.agg_counts_pair(a, h, y, rem)[:, :ho].to(torch.float32)
+    idx = torch.from_numpy(np.stack([rows, cols])).to(y.device)
+    csr = torch.sparse_coo_tensor(
+        idx, torch.from_numpy(vals).to(y.device),
+        (a.n_tile_rows * 4, y.shape[0] + rem.shape[0])).coalesce() \
+        .to_sparse_csr()
+    got = torch.sparse.mm(csr, operand)[:a.n_rows]
+    bad = (got - want).abs() > (0 if mag is None else
+                                FP_TOL * mag + FP_TOL_ABS)
+    if bool(bad.any()):
+        raise AssertionError("pair yardstick: torch.sparse.mm differs from "
+                             "the plain pair's sums")
+    return ("torch.sparse.mm of [intra | halo] (scales in its values)"
+            + (", +-1 float rows" if mag is None else ""),
+            lambda: torch.sparse.mm(csr, operand))
+
+
 def run_sharded(torch, flickr, single, params) -> list:
     """Phases 8-10: sharded serving on full Flickr, SHARDS shards on the
     one card, executor="host". Returns the records of the fused layer's
@@ -1443,7 +1494,7 @@ def run_sharded(torch, flickr, single, params) -> list:
     launches = ops.launch_counts()
     log(f"sharded main path: {time.perf_counter() - t0:.1f} s; launches "
         + json.dumps(launches))
-    need = list(FORWARD_KERNELS) + ["fused_layer"] \
+    need = list(FORWARD_KERNELS) + ["fused_layer", "fused_pair"] \
         + [f"fused_layer/{k}" for k in PAIR_KINDS]
     missing = [k for k in need if launches[k] == 0]
     if missing:
@@ -1551,6 +1602,7 @@ def run_sharded(torch, flickr, single, params) -> list:
     log("sharded launches a pass: " + json.dumps(pass_launches))
 
     err = {f"fused_layer/{k}": 0.0 for k in PAIR_KINDS}
+    err["fused_pair"] = 0.0
 
     def ints(shape, lo=-3, hi=4):
         return card(rng.integers(lo, hi, shape).astype(np.float32))
@@ -1574,6 +1626,30 @@ def run_sharded(torch, flickr, single, params) -> list:
     # bound); the calls bind their inputs now (partial), as the names are
     # rebound from one form to the next
     specs = {}
+    # the pair kernel alone on each step's transform: name -> (pair
+    # arguments, keywords, sum of |terms| or None, bound, library call)
+    pairs = {}
+
+    def pair_case(args, **kw):
+        y, ys, rem_, a_, h_, it_ = args
+        words = y.dtype == torch.int32
+        ho = kw["n_out"] if words else y.shape[1]
+        nbytes = (group_bytes(a_) + group_bytes(h_) + 8 * it_.tasks.shape[0]
+                  + y.element_size() * y.shape[1]
+                  * (y.shape[0] + rem_.shape[0] + a_.n_rows))
+        for scale in (a_.row_scale, a_.col_scale, h_.col_scale):
+            nbytes += 0 if scale is None else 4 * scale.numel()
+        if ys is not None:
+            nbytes += 4 * ys.numel()
+        mag = agg_mag = None
+        if not words:
+            mag = agg_mag = fl.agg_fp_pair(a_, h_, y.abs(), rem_.abs())
+            if ys is not None:
+                mag = agg_mag + ys.abs()
+        return (args, kw, mag, bound(nbytes, [(
+            2 * (a_.nnz + h_.nnz) * ho,
+            INT8_TC_OPS_PER_S if words else FP32_OPS_PER_S)]),
+            pair_library(torch, fl, a_, h_, y, rem_, ho, agg_mag))
     # 7e: GCN "bin" layer 1, 500 -> 64 words over the 0/1 pair
     a, h, it = shard0("gcn_bin/fused", "bin")
     npd, nhp = a.n_rows, h.n_cols
@@ -1587,8 +1663,8 @@ def run_sharded(torch, flickr, single, params) -> list:
         f"shard 0 ({npd} rows, halo {nhp}): ({npd}, {f_fl}) -> ({npd}, {wh}) "
         f"words, intra {real_groups(a)} + halo {real_groups(h)} groups, "
         f"{a.nnz} + {h.nnz} edges",
-        partial(fl.gcn_bin_l1, x, bn, w1, a, item_ptr=it[0], halo=h,
-                rem=rem_w, halo_items=it[1], bn_rcp=True),
+        partial(fl.gcn_bin_l1, x, bn, w1, a, halo=h, rem=rem_w,
+                pair_items=it, bn_rcp=True),
         partial(fl.gcn_bin_l1_plain, x, bn, w1, a, halo=h, rem=rem_w,
                 bn_rcp=True),
         None, HIDDEN,
@@ -1596,6 +1672,9 @@ def run_sharded(torch, flickr, single, params) -> list:
               + 4 * nhp * wh + 4 * npd * wh,
               [(2 * npd * f_fl * HIDDEN, FP32_OPS_PER_S),
                (2 * (a.nnz + h.nnz) * HIDDEN, INT8_TC_OPS_PER_S)]))
+    pairs["gcn_bin_l1+halo"] = pair_case(
+        (fl.transform(x, bn, w1, fbb=True, bn_rcp=True), None, rem_w, a, h,
+         it), n_out=HIDDEN)
     # 7f: GCN "full" layer 1, 500 -> 64 over the scaled pair, ReLU
     a, h, it = shard0("gcn_full/fused", "adj")
     x, bn, wf = ints((npd, f_fl)), bn_of(f_fl), weights(HIDDEN, f_fl)
@@ -1607,8 +1686,7 @@ def run_sharded(torch, flickr, single, params) -> list:
         f"shard 0 GCN full layer 1: ({npd}, {f_fl}) -> ({npd}, {HIDDEN}), "
         f"intra {real_groups(a)} + halo {real_groups(h)} groups, "
         f"{a.nnz} + {h.nnz} edges, rem ({h.n_cols}, {HIDDEN})",
-        partial(fl.gcn_bbf_fbf, x, bn, wf, a, True, it[0], h, rem, it[1],
-                True),
+        partial(fl.gcn_bbf_fbf, x, bn, wf, a, True, None, h, rem, it, True),
         partial(fl.gcn_bbf_fbf_plain, x, bn, wf, a, True, h, rem, True),
         fl.agg_fp_pair(a, h, y.abs(), rem.abs()), None,
         bound(4 * npd * f_fl + 8 * f_fl + 4 * HIDDEN * (wk_f + 1)
@@ -1617,17 +1695,22 @@ def run_sharded(torch, flickr, single, params) -> list:
               [(2 * npd * HIDDEN * f_fl, INT8_TC_OPS_PER_S),
                (2 * npd * f_fl, FP32_OPS_PER_S),
                (2 * (a.nnz + h.nnz) * HIDDEN, FP32_OPS_PER_S)]))
-    # GCN "bin" layer 2 (words 64 -> 7) with its pair: parity only
+    pairs["gcn_bbf_fbf+halo"] = pair_case(
+        (fl.transform(x, bn, wf, bn_rcp=True), None, rem, a, h, it),
+        relu=True)
+    # GCN "bin" layer 2 (words 64 -> 7) with its pair: parity and step times
     a2, h2, it2 = shard0("gcn_bin/fused", "adj")
     hw = bitops.pack_bits(card(rng.integers(0, 2, (npd, HIDDEN))))
     w2 = weights(n_cls, HIDDEN)
     rem7 = ints((h2.n_cols, n_cls))
     y2 = fl._bbf(*fl._input(hw, None), w2)
     words_case = (
-        partial(fl.gcn_bbf_fbf, hw, None, w2, a2, False, it2[0], h2, rem7,
-                it2[1]),
+        partial(fl.gcn_bbf_fbf, hw, None, w2, a2, False, None, h2, rem7,
+                it2),
         partial(fl.gcn_bbf_fbf_plain, hw, None, w2, a2, False, h2, rem7),
         fl.agg_fp_pair(a2, h2, y2.abs(), rem7.abs()))
+    pairs["gcn_bbf_fbf+halo words"] = pair_case(
+        (fl.transform(hw, None, w2), None, rem7, a2, h2, it2))
     # 7g: SAGE layer 1, 500 -> 64, self + mean pair, ReLU
     a, h, it = shard0("sage/fused", "mean")
     x, bn = ints((npd, f_fl)), bn_of(f_fl)
@@ -1640,8 +1723,7 @@ def run_sharded(torch, flickr, single, params) -> list:
         f"shard 0 SAGE layer 1: ({npd}, {f_fl}) -> ({npd}, {HIDDEN}), self + "
         f"mean pair, intra {real_groups(a)} + halo {real_groups(h)} groups, "
         f"{a.nnz} + {h.nnz} edges",
-        partial(fl.branch_add, x, bn, ws, wa, a, True, it[0], h, rem, it[1],
-                True),
+        partial(fl.branch_add, x, bn, ws, wa, a, True, None, h, rem, it, True),
         partial(fl.branch_add_plain, x, bn, ws, wa, a, True, h, rem, True),
         mag, None,
         bound(4 * npd * f_fl + 8 * f_fl + 8 * HIDDEN * (wk_f + 1)
@@ -1650,6 +1732,9 @@ def run_sharded(torch, flickr, single, params) -> list:
               [(4 * npd * HIDDEN * f_fl, INT8_TC_OPS_PER_S),
                (2 * npd * f_fl, FP32_OPS_PER_S),
                (2 * (a.nnz + h.nnz) * HIDDEN, FP32_OPS_PER_S)]))
+    pairs["branch_add+halo"] = pair_case(
+        (*fl.transform(x, bn, wa, bn_rcp=True, w_self=ws), rem, a, h, it),
+        relu=True)
     # 7h: SAINT's fc, 64 -> 7, BN by the reciprocal (no aggregation)
     xh, bnh, wc = ints((npd, HIDDEN)), bn_of(HIDDEN), weights(n_cls, HIDDEN)
     wk_h = bitops.padded_words(HIDDEN)
@@ -1678,9 +1763,16 @@ def run_sharded(torch, flickr, single, params) -> list:
     hold("fused_layer/gcn_bbf_fbf+halo", got, words_case[1](),
          magnitude=words_case[2])
     cases += 2
+    for kind, (args, kw, mag, _, _) in pairs.items():
+        got = fl.pair(*args, **kw)
+        hold("fused_pair", got, fl.pair(*args, **kw))
+        hold("fused_pair", got, fl.pair_plain(*args[:5], **kw),
+             n_bits=kw.get("n_out"), magnitude=mag)
+        cases += 2
     torch.cuda.synchronize()
-    log(f"parity (sharded forms of the fused layer): {cases} cases passed; "
-        f"max abs err " + json.dumps(err))
+    log(f"parity (sharded forms of the fused layer, and the pair kernel "
+        f"alone on their transforms): {cases} cases passed; max abs err "
+        + json.dumps(err))
     records = []
     for kind, (shape, call, plain, _, _, b) in specs.items():
         name = f"fused_layer/{kind}"
@@ -1690,6 +1782,34 @@ def run_sharded(torch, flickr, single, params) -> list:
     log("device ms (torch.profiler), sharded forms at shard 0: " + json.dumps(
         {kind: device_ms(torch, call)
          for kind, (_, call, _, _, _, _) in specs.items()}))
+    # the step (transform + pair launch) and the pair launch alone
+    steps = {k: v[1] for k, v in specs.items() if k in pairs}
+    steps["gcn_bbf_fbf+halo words"] = words_case[0]
+    pair_times = {}
+    for kind, (args, kw, _, b, (lib_name, lib)) in pairs.items():
+        words = args[0].dtype == torch.int32
+        call = partial(fl.pair, *args, **kw)
+        pair_times[kind] = {
+            "step_ms": cuda_ms(torch, steps[kind]),
+            "step_device_ms": device_ms(torch, steps[kind]),
+            "pair_ms": cuda_ms(torch, call),
+            "pair_device_ms": device_ms(torch, call),
+            "pair_bound_ms": b[0], "pair_bound_by": b[1],
+            "library": lib_name, "library_ms": cuda_ms(torch, lib),
+            "library_device_ms": device_ms(torch, lib),
+            "attributes": fl.pair_attributes(
+                kw.get("n_out") or args[0].shape[1], words)}
+    log("time fused_pair per form at shard 0 (step = transform + pair): "
+        + json.dumps(pair_times))
+    args, kw, _, b, (_, lib) = pairs["gcn_bbf_fbf+halo"]
+    records.append(kernel_record(
+        "fused_pair", f"shard 0 GCN full layer 1's pair: {args[3].n_rows} "
+        f"rows, rem {tuple(args[2].shape)}, {args[5].tasks.shape[0]} tasks "
+        f"({args[5].n_part} of multi-item rows)", launches["fused_pair"],
+        err["fused_pair"], pair_times["gcn_bbf_fbf+halo"]["pair_ms"],
+        cuda_ms(torch, partial(fl.pair_plain, *args[:5], **kw), iters=5,
+                warmup=1),
+        pair_times["gcn_bbf_fbf+halo"]["library_ms"], b))
     log(f"phases 8-10: {time.perf_counter() - t_start:.1f} s")
     return records, store
 

@@ -41,19 +41,11 @@
 //   3. combine: one warp per tile-row adds its items' partials in item order,
 //      then applies the row scale, the self branch and the ReLU, or the sign
 //      (with the tail bits past the width cleared).
-// The sharded executors' pair body (the reference's agg(intra, y) +
-// agg(halo, rem) inside one fused_call) adds a second adjacency: the halo
-// matrix of the same tile-rows, whose columns are the rows of rem, the
-// other shards' transform of this shard's halo nodes (exchanged before the
-// launch; computed by the same kernel with aggregate = 0, so a remote row
-// equals the row its owner computes). Its column scale is folded into rem
-// (into remc, before the first barrier) as the intra one is into y, its
-// work items follow the intra ones in phase 2, and phase 3 sums the intra
-// items, then the halo items, adds the two sums and only then applies the
-// shared row scale: the association of the reference's serve_fp_pair.
-// Counts are integers, so the pair's are exact. bn_rcp takes BN as
-// (x - mu) * (1 / sd), the executors' apply_bn, where the single-host kinds
-// divide.
+// With aggregate = 0 the kernel stops after phase 1: its transform alone,
+// the rows the sharded executors exchange, written without the column scale
+// (and, with w_s, the self branch's product to ys). Their pair step then
+// aggregates it with fused_pair.cu. bn_rcp takes BN as (x - mu) * (1 / sd),
+// the executors' apply_bn, where the single-host kinds divide.
 // Every sum has a fixed order, so two runs give the same bits. The scratch
 // (transform output, partials) comes from the caller's torch.empty.
 // Bound on H100: BMM.FBB is 2 F H fp32 operations a row (89,252 x 500 x 64
@@ -124,21 +116,10 @@ struct Params {
   int n_tile_rows;
   long long n_rows;
   int chunk;
-  // the halo adjacency of the sharded pair body (h_grp_ptr null: none):
-  // the same tile-rows, columns the rows of rem (its halo nodes' transform,
-  // fp32 rows or packed words), folded with its own column scale into remc
-  const int32_t* h_grp_ptr;
-  const int32_t* h_tiles;
-  const int32_t* h_col_idx;
-  const int32_t* h_item_ptr;
-  const float* h_col_scale;
-  const void* rem;
-  long long n_rem;
-  float* remc;  // (n_rem, ho) fp rows the halo items walk
   // scratch and output
   void* y;      // (n_in, ho) float, or (n_in, ceil(ho/32)) words when fbb
   float* ys;    // (n_in, ho) self branch
-  void* part;   // (intra + halo items, 4, width) partial sums
+  void* part;   // (items, 4, width) partial sums
   void* out;    // (n_rows, ho) float, or (n_rows, ceil(ho/32)) words
   // the fp aggregation's lane layout (walk::FpLanes), from the wrapper
   int fp_sub;
@@ -516,8 +497,8 @@ __device__ void transform_bbf(const Params& p, uint32_t* smem) {
   }
 }
 
-// One adjacency of phase 2: its arrays, its work items and the rows its
-// groups gather (y for the intra matrix, rem or remc for the halo one).
+// Phase 2's adjacency: its arrays, its work items and y, the rows its
+// groups gather.
 struct Walked {
   const int32_t* grp_ptr;
   const int32_t* tiles;
@@ -581,12 +562,10 @@ __device__ __forceinline__ void aggregate_fp(const Walked& a, int ho,
   }
 }
 
-// kPair: the sharded pair body (p.h_grp_ptr set); kRcp: BN as (x - mu) *
-// sd, sd holding 1 / sd (p.bn_rcp). Template arguments, so that the
-// single-host kinds run an instantiation with neither, whose registers
-// the sharded code does not crowd (with either one a runtime choice they
-// read 2-5% slower in tools/xform_step0.py).
-template <bool kPair, bool kRcp>
+// kRcp: BN as (x - mu) * sd, sd holding 1 / sd (p.bn_rcp). A template
+// argument, so that the single-host kinds run an instantiation without it
+// (as a runtime choice they read 2-5% slower in tools/xform_step0.py).
+template <bool kRcp>
 __global__ void __launch_bounds__(kThreads, 2) fused_layer_kernel(Params p) {
   extern __shared__ uint4 s_tile[];
   __shared__ int2 s_hits[kWarps][walk::kHitsPerLoad];
@@ -601,32 +580,15 @@ __global__ void __launch_bounds__(kThreads, 2) fused_layer_kernel(Params p) {
   else
     transform_bbf<kRcp>(p, (uint32_t*)s_tile);
   if (!p.aggregate) return;
-  // the fp halo operand, rem times the halo column scale (as the intra
-  // scale is folded into y), to remc: aligned for the walk's vector loads
-  if (kPair && !p.fbb) {
-    const float* rem = (const float*)p.rem;
-    const long long n = p.n_rem * p.ho;
-    for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x; e < n;
-         e += (long long)gridDim.x * kThreads)
-      p.remc[e] = p.h_col_scale ? rem[e] * p.h_col_scale[e / p.ho] : rem[e];
-  }
   grid.sync();
 
-  // 2. aggregate: partial sums per work item, the intra items, then the
-  // halo items (their partials follow the intra ones in `part`)
+  // 2. aggregate: partial sums per work item
   const int width = p.fbb ? wh * 32 : p.ho;
-  const Walked intra = {p.grp_ptr, p.tiles, p.col_idx, p.item_ptr, p.y, p.n_in};
-  const Walked halo = {p.h_grp_ptr, p.h_tiles, p.h_col_idx, p.h_item_ptr,
-                       p.fbb ? p.rem : (const void*)p.remc, p.n_rem};
-  const long long n_intra = p.item_ptr[p.n_tile_rows];
-  const long long n_items =
-      n_intra + (kPair ? p.h_item_ptr[p.n_tile_rows] : 0);
+  const Walked a = {p.grp_ptr, p.tiles, p.col_idx, p.item_ptr, p.y, p.n_in};
+  const long long n_items = p.item_ptr[p.n_tile_rows];
   for (long long it = gw; it < n_items; it += n_warps) {
-    const bool in_halo = kPair && it >= n_intra;
-    const Walked a = in_halo ? halo : intra;
     int row, g0, g1;
-    find_item(a, p.n_tile_rows, p.chunk, in_halo ? it - n_intra : it, &row,
-              &g0, &g1);
+    find_item(a, p.n_tile_rows, p.chunk, it, &row, &g0, &g1);
     if (p.fbb) {
       int32_t* part = (int32_t*)p.part + it * kTile * width;
 #define AGGREGATE(W)                                                    \
@@ -652,23 +614,15 @@ __global__ void __launch_bounds__(kThreads, 2) fused_layer_kernel(Params p) {
   }
   grid.sync();
 
-  // 3. combine: per tile-row, the intra items' partials added in item
-  // order, the halo items' likewise, the two sums added; then the epilogue
-  // (the row scale once, after the add, as ops.serve_fp_pair)
+  // 3. combine: per tile-row, the items' partials added in item order;
+  // then the epilogue
   for (long long tr = gw; tr < p.n_tile_rows; tr += n_warps) {
     const int i0 = p.item_ptr[tr], i1 = p.item_ptr[tr + 1];
-    const long long h0 = kPair ? n_intra + p.h_item_ptr[tr] : 0;
-    const long long h1 = kPair ? n_intra + p.h_item_ptr[tr + 1] : 0;
     const long long row0 = tr * kTile;
     if (p.fbb) {
       for (int w = 0; w < wh; ++w) {
         int acc[kTile] = {0, 0, 0, 0};
         for (long long it = i0; it < i1; ++it) {
-          const int32_t* part = (const int32_t*)p.part + it * kTile * width;
-#pragma unroll
-          for (int i = 0; i < kTile; ++i) acc[i] += __ldcg(part + i * width + w * 32 + lane);
-        }
-        for (long long it = h0; it < h1; ++it) {  // integers: exact in any order
           const int32_t* part = (const int32_t*)p.part + it * kTile * width;
 #pragma unroll
           for (int i = 0; i < kTile; ++i) acc[i] += __ldcg(part + i * width + w * 32 + lane);
@@ -690,16 +644,6 @@ __global__ void __launch_bounds__(kThreads, 2) fused_layer_kernel(Params p) {
           const float* part = (const float*)p.part + it * kTile * width;
 #pragma unroll
           for (int i = 0; i < kTile; ++i) acc[i] += __ldcg(part + i * width + col);
-        }
-        if (h1 > h0) {
-          float hacc[kTile] = {0.f, 0.f, 0.f, 0.f};
-          for (long long it = h0; it < h1; ++it) {
-            const float* part = (const float*)p.part + it * kTile * width;
-#pragma unroll
-            for (int i = 0; i < kTile; ++i) hacc[i] += __ldcg(part + i * width + col);
-          }
-#pragma unroll
-          for (int i = 0; i < kTile; ++i) acc[i] = acc[i] + hacc[i];
         }
 #pragma unroll
         for (int i = 0; i < kTile; ++i) {
@@ -727,8 +671,6 @@ extern "C" int fused_layer(const void* params, void* stream) {
   if (p.wk > kMaxWords || (p.ho + 31) / 32 > kMaxChunks ||
       p.wk != (p.f + 31) / 32)
     return (int)cudaErrorInvalidValue;
-  if (p.h_grp_ptr && (!p.h_item_ptr || !p.rem || (!p.fbb && !p.remc)))
-    return (int)cudaErrorInvalidValue;
   if (p.aggregate && !p.fbb &&
       walk::with_fp_layout(p.fp_sub, p.fp_cols, p.fp_vec,
                            [](auto, auto, auto) { return cudaSuccess; }) != cudaSuccess)
@@ -736,10 +678,8 @@ extern "C" int fused_layer(const void* params, void* stream) {
   const int smem = transform_smem(p.f, p.fbb, p.w_s != nullptr);
   int resident = 0;
   using Kernel = void (*)(Params);
-  const Kernel kernels[2][2] = {
-      {fused_layer_kernel<false, false>, fused_layer_kernel<false, true>},
-      {fused_layer_kernel<true, false>, fused_layer_kernel<true, true>}};
-  const Kernel kernel = kernels[p.h_grp_ptr != nullptr][p.bn_rcp != 0];
+  const Kernel kernel = p.bn_rcp ? fused_layer_kernel<true>
+                                 : fused_layer_kernel<false>;
   cudaError_t e = launch::allow_smem(kernel, smem);
   if (e == cudaSuccess)
     e = launch::resident_blocks(kernel, kThreads, smem, &resident);
@@ -763,6 +703,6 @@ extern "C" int fused_layer(const void* params, void* stream) {
 // features in BMM.FBB (fbb) or BMM.BBF (with the self branch's weights or
 // without): out[0..3]. One build serves every kind and layout.
 extern "C" int fused_layer_attrs(int f, int fbb, int self_branch, int* out) {
-  return (int)launch::attributes(fused_layer_kernel<false, false>, kThreads,
+  return (int)launch::attributes(fused_layer_kernel<false>, kThreads,
                                  transform_smem(f, fbb, self_branch), out);
 }

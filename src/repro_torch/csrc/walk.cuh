@@ -1,6 +1,7 @@
 // FRDC group walks shared by the BSpMM kernels: the 1D kernels (bspmm.cu),
-// the 2D block grid (bspmm_grid.cu) and the fused per-layer kernel
-// (fused_layer.cu), and the work split of the 1D and grid kernels.
+// the 2D block grid (bspmm_grid.cu), the fused per-layer kernel
+// (fused_layer.cu) and the sharded pair step (fused_pair.cu), and the work
+// split of the 1D and grid kernels.
 //
 // A walk adds the groups [g0, g1) of one tile-row into the four row
 // accumulators a warp holds, in group order: one load brings the tiles and
@@ -293,14 +294,19 @@ __device__ __forceinline__ void gather(const float* p, const int off[kCols],
 
 // Adds the groups [g0, g1) of one tile-row into acc, columns [c0, c1) of
 // rows x (row stride ld) in this pass; `hits` is the warp's kHitsPerLoad
-// slots of shared memory.
-template <int kSub, int kCols, bool kVec, bool kCoherent = false>
+// slots of shared memory. kScaled multiplies each gathered row by its
+// column scale (col_scale[row], 1 where col_scale is null) before the add,
+// one rounded product (__fmul_rn, never contracted into the add); the
+// scale is loaded beside the row, so it costs no round trip of its own.
+template <int kSub, int kCols, bool kVec, bool kCoherent = false,
+          bool kScaled = false>
 __device__ __forceinline__ void fp(const int32_t* __restrict__ tiles,
                                    const int32_t* __restrict__ col_idx,
                                    const float* __restrict__ x, int g0, int g1,
                                    int c0, int c1, int ld, long long n_x_rows,
                                    int lane, int2* hits,
-                                   float acc[kTile][kCols]) {
+                                   float acc[kTile][kCols],
+                                   const float* __restrict__ col_scale = nullptr) {
   using L = FpLanes<kSub, kCols, kVec>;
   const int sub = lane / kSub;
   const unsigned below = (1u << lane) - 1u;
@@ -343,27 +349,35 @@ __device__ __forceinline__ void fp(const int32_t* __restrict__ tiles,
     __syncwarp();
     for (int e0 = 0; e0 < n_hits; e0 += L::kSubs * L::kUnroll) {
       float v[L::kUnroll][kCols];
+      float scale[L::kUnroll];
       int rows[L::kUnroll];
 #pragma unroll
       for (int u = 0; u < L::kUnroll; ++u) {
         const int e = e0 + u * L::kSubs + sub;
         rows[u] = 0;
+        scale[u] = 1.f;
         if (e < n_hits) {
           const int2 h = hits[e];
           rows[u] = h.y;
           gather<kCoherent, kCols, kVec>(x + (long long)h.x * ld, off, ok, v[u]);
+          if constexpr (kScaled)
+            if (col_scale) scale[u] = load<kCoherent>(col_scale + h.x);
         } else {
 #pragma unroll
           for (int c = 0; c < kCols; ++c) v[u][c] = 0.f;
         }
       }
 #pragma unroll
-      for (int u = 0; u < L::kUnroll; ++u)
+      for (int u = 0; u < L::kUnroll; ++u) {
+        if constexpr (kScaled)
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) v[u][c] = __fmul_rn(v[u][c], scale[u]);
 #pragma unroll
         for (int i = 0; i < kTile; ++i)
           if ((rows[u] >> i) & 1)
 #pragma unroll
             for (int c = 0; c < kCols; ++c) acc[i][c] += v[u][c];
+      }
     }
     __syncwarp();
   }

@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("pack", "bmm", "bspmm", "bspmm_grid", "fused_layer")
+SOURCES = ("pack", "bmm", "bspmm", "bspmm_grid", "fused_layer", "fused_pair")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -49,6 +49,9 @@ SIGNATURES = {
                    "bspmm_fp_grid_attrs": (_I, _I, _I, _P)},
     "fused_layer": {"fused_layer": (_P, _P),
                     "fused_layer_attrs": (_I, _I, _I, _P)},
+    "fused_pair": {"fused_pair": (_P, _P),
+                   "fused_pair_fp_attrs": (_I, _I, _I, _P),
+                   "fused_pair_bits_attrs": (_I, _I, _P)},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

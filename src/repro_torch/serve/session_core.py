@@ -404,10 +404,14 @@ class LayerStep:
     the aggregation (SAINT's trailing FC).
 
     The reference traces a step's body inside one ``fused_call`` for the
-    fused plans; CUDA replays no jaxpr, so each step also names its one-
-    launch form: ``fused(st, bn, rem, intra, halo, items)`` (a fused layer
-    kind with the halo pair, BN by the reciprocal) and ``transform(st,
-    bn)``, that kind's transform alone, which gives the exchange operand.
+    fused plans; CUDA replays no jaxpr, so each step also names its fused
+    form, two launches: ``transform(st, bn) -> (y, ys)``, the fused layer
+    kind's transform alone (BN by the reciprocal), whose rows ``y`` are the
+    exchange operand (``ys``: the self branch, or None), and ``pair(y, ys,
+    rem, intra, halo, items)``, the aggregation of the intra+halo pair and
+    the epilogue (``fused_layer.pair``; ``items`` from
+    ``fused_layer.pair_items``). ``fused(st, bn, rem, intra, halo, items)``
+    is the two in turn, or, for an exchange-free step, its one launch.
 
     ``payload_cols``/``payload_itemsize``: the exchange operand's row width,
     the wire-byte schedule of the step (``MeshHaloPlan.payload_bytes``).
@@ -422,6 +426,7 @@ class LayerStep:
     payload_itemsize: int = 4
     fused: Optional[Callable] = None
     transform: Optional[Callable] = None
+    pair: Optional[Callable] = None
 
     @property
     def tag(self) -> str:
@@ -437,6 +442,19 @@ def binarize_counts(counts: torch.Tensor, n_feat: int) -> BinTensor:
         counts = counts[:, :n_feat]
     return BinTensor(packed=bitops.sign_bits(counts, axis=-1),
                      scale=counts.new_ones((counts.shape[0], 1)), n=n_feat)
+
+
+def _fused_step(transform: Callable, pair: Callable) -> Callable:
+    """A step's fused form from its two launches."""
+    def fused(st, bn, rem, intra, halo, items):
+        y, ys = transform(st, bn)
+        return pair(y, ys, rem, intra, halo, items)
+    return fused
+
+
+def _step(*args, transform: Callable, pair: Callable, **kw) -> LayerStep:
+    return LayerStep(*args, fused=_fused_step(transform, pair),
+                     transform=transform, pair=pair, **kw)
 
 
 def build_layer_program(plan: SessionPlan, q) -> Tuple[LayerStep, ...]:
@@ -465,29 +483,31 @@ def build_layer_program(plan: SessionPlan, q) -> Tuple[LayerStep, ...]:
             return bmm(h1, q.w2, "BBF"), None
 
         return (
-            LayerStep("layer1", "bin", True, 0, pre1, post1,
-                      payload_cols=-(-n_hidden // 32),
-                      fused=lambda st, bn, rem, a, h, it: fl.gcn_bin_l1(
-                          st, bn, q.w1, a, mode, it[0], h, rem, it[1], True),
-                      transform=lambda st, bn: fl.transform(
-                          st, bn, q.w1, fbb=True, bn_rcp=True)),
-            LayerStep("layer2", "adj", False, None, pre2,
-                      lambda aux, y: y, payload_cols=n_out,
-                      fused=lambda st, bn, rem, a, h, it: fl.gcn_bbf_fbf(
-                          st, None, q.w2, a, False, it[0], h, rem, it[1]),
-                      transform=lambda st, bn: fl.transform(st, None, q.w2)),
+            _step("layer1", "bin", True, 0, pre1, post1,
+                  payload_cols=-(-n_hidden // 32),
+                  transform=lambda st, bn: (fl.transform(
+                      st, bn, q.w1, fbb=True, bn_rcp=True), None),
+                  pair=lambda y, ys, rem, a, h, it: fl.pair(
+                      y, ys, rem, a, h, it, n_out=n_hidden,
+                      trinary_mode=mode)),
+            _step("layer2", "adj", False, None, pre2, lambda aux, y: y,
+                  payload_cols=n_out,
+                  transform=lambda st, bn: (fl.transform(st, None, q.w2),
+                                            None),
+                  pair=fl.pair),
         )
     if fam == "gcn":
         def gcn_step(name, site, w, relu):
             def pre(z):
                 return bmm(quantize_act(z), w, "BBF"), None
-            return LayerStep(
+            return _step(
                 name, "adj", False, site, pre,
                 (lambda aux, y: torch.relu(y)) if relu else (lambda aux, y: y),
                 payload_cols=int(w.packed.shape[0]),
-                fused=lambda st, bn, rem, a, h, it: fl.gcn_bbf_fbf(
-                    st, bn, w, a, relu, it[0], h, rem, it[1], True),
-                transform=lambda st, bn: fl.transform(st, bn, w, bn_rcp=True))
+                transform=lambda st, bn: (fl.transform(st, bn, w,
+                                                       bn_rcp=True), None),
+                pair=lambda y, ys, rem, a, h, it: fl.pair(
+                    y, ys, rem, a, h, it, relu))
 
         return (gcn_step("layer1", 0, q.w1, True),
                 gcn_step("layer2", 1, q.w2, False))
@@ -504,12 +524,13 @@ def build_layer_program(plan: SessionPlan, q) -> Tuple[LayerStep, ...]:
             h = bmm(xq, w_self, "BBF") + agg
             return torch.relu(h) if relu else h
 
-        return LayerStep(
+        return _step(
             name, kind, False, site, pre, post,
             payload_cols=int(w_agg.packed.shape[0]),
-            fused=lambda st, bn, rem, a, h, it: fl.branch_add(
-                st, bn, w_self, w_agg, a, relu, it[0], h, rem, it[1], True),
-            transform=lambda st, bn: fl.transform(st, bn, w_agg, bn_rcp=True))
+            transform=lambda st, bn: fl.transform(st, bn, w_agg, bn_rcp=True,
+                                                  w_self=w_self),
+            pair=lambda y, ys, rem, a, h, it: fl.pair(y, ys, rem, a, h, it,
+                                                      relu))
 
     steps = [branch_step("layer1", 0, q.w1_self, q.w1_agg, True),
              branch_step("layer2", 1, q.w2_self, q.w2_agg, fam == "saint")]

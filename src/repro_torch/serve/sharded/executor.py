@@ -14,13 +14,14 @@ operand rows of every shard are gathered by the same index tables
 padded rows stay zero, and :class:`~.halo.HaloStats` records the bytes the
 reference's :func:`~.halo.gather_rows` would, under the same tags.
 
-A fused plan (``plan.fused`` with ``use_pallas``) runs each step as one
-fused-layer launch with the intra+halo pair (``LayerStep.fused``); the
-exchanged operand is then the same kernel's transform alone
-(``LayerStep.transform``), so a remote row equals the row its owner's
-launch computes for itself, bit for bit. The unfused stages run BN by the
-reciprocal (``apply_bn``), ``step.pre`` and the 1D kernels through
-``ops.serve_counts`` / ``serve_fp_pair``.
+A fused plan (``plan.fused`` with ``use_pallas``) runs each step as two
+launches a shard: ``LayerStep.transform`` over all of the shard's padded
+rows, whose first ``n_local`` rows are exchanged, and ``LayerStep.pair``,
+the intra+halo aggregation and epilogue on that same transform and the
+exchanged rows, so a remote row is the row its owner aggregates, bit for
+bit. An exchange-free step is one fused launch (``LayerStep.fused``). The
+unfused stages run BN by the reciprocal (``apply_bn``), ``step.pre`` and
+the 1D kernels through ``ops.serve_counts`` / ``serve_fp_pair``.
 
 Calibrate mode (``bn_mode="distributed"``) takes each BN site's (mu, sd)
 from the pass itself: per-shard sum and sum-of-squares partials added
@@ -37,7 +38,7 @@ import numpy as np
 import torch
 
 from ...core import frdc
-from ...kernels import bspmm_kernel
+from ...kernels import fused_layer
 from ...kernels import ops as kernel_ops
 from .. import session_core
 from ..session_core import LayerExecutor, LayerStep, SessionPlan
@@ -47,16 +48,17 @@ from .routing import RoutingTable
 
 
 def layer_compute(step: LayerStep, trinary_mode: str, st, bn_stats, rem,
-                  intra, halo, fused: bool = False, items=None):
+                  intra, halo, fused: bool = False):
     """One layer step on one shard.
 
     ``st``: the shard's padded carried state; ``bn_stats``: (mu, sd) or
     None; ``rem``: the (n_halo_pad, F) exchanged halo operand (None for
     exchange-free steps); ``intra``/``halo``: the shard's uniformly padded
-    FRDC matrices of ``step.kind``; ``items``: their fused work items.
-    ``fused`` runs the whole step as one fused-layer launch."""
+    FRDC matrices of ``step.kind``. ``fused`` runs the step in its fused
+    form (``LayerStep.fused``; the executor runs an exchange step's two
+    launches itself)."""
     if fused:
-        return step.fused(st, bn_stats, rem, intra, halo, items)
+        return step.fused(st, bn_stats, rem, intra, halo, None)
     z = session_core.apply_bn(st, *bn_stats) if bn_stats is not None else st
     operand, aux = step.pre(z)
     if step.kind is None:
@@ -104,10 +106,9 @@ class HostLayerExecutor(LayerExecutor):
                                 frdc.pad_frdc_uniform(
                                     [pt.halo[kind] for pt in parts], npd, nhp,
                                     spmd.halo_groups[kind])]
-            if self.fused:   # the fused kernels' work items, built once
+            if self.fused:   # the pair kernel's tasks, built once
                 self._items[kind] = [
-                    (bspmm_kernel.work_items(a.grp_ptr),
-                     bspmm_kernel.work_items(h.grp_ptr))
+                    fused_layer.pair_items(a, h)
                     for a, h in zip(self._intra[kind], self._halo[kind])]
         # per shard: its halo nodes on the device, and the rows each other
         # shard serves it (gather_rows' byte accounting, owner by owner)
@@ -184,14 +185,22 @@ class HostLayerExecutor(LayerExecutor):
                           dict(with_bn=with_bn))
             self._program(("stage", i, with_bn), f"stage{i}",
                           self._stage_shape(with_bn))
+            intra, halo = self._intra[step.kind], self._halo[step.kind]
+            if self.fused:   # the transform once: exchanged and aggregated
+                outs = [step.transform(s, bn_args) for s in state]
+                halo_in = self._exchange(
+                    [y[:p.n_local] for (y, _), p in zip(outs, self.parts)],
+                    step.tag)
+                items = self._items[step.kind]
+                state = [step.pair(y, ys, rem, intra[k], halo[k], items[k])
+                         for k, ((y, ys), rem) in enumerate(zip(outs,
+                                                                halo_in))]
+                continue
             operands = [self._operand(step, s, bn_args)[:p.n_local]
                         for s, p in zip(state, self.parts)]
             halo_in = self._exchange(operands, step.tag)
-            intra, halo = self._intra[step.kind], self._halo[step.kind]
-            items = self._items.get(step.kind)
             state = [layer_compute(step, trinary, s, bn_args, rem, intra[k],
-                                   halo[k], self.fused,
-                                   items[k] if items else None)
+                                   halo[k])
                      for k, (s, rem) in enumerate(zip(state, halo_in))]
         blocks = [s[:p.n_local].cpu().numpy()
                   for s, p in zip(state, self.parts)]
@@ -211,9 +220,9 @@ class HostLayerExecutor(LayerExecutor):
 
     def _operand(self, step: LayerStep, st, bn_args):
         """The exchange operand of one shard: BN and ``step.pre``, or the
-        fused kind's transform alone (the rows its launch computes)."""
+        fused kind's transform alone (the rows its pair aggregates)."""
         if self.fused:
-            return step.transform(st, bn_args)
+            return step.transform(st, bn_args)[0]
         z = session_core.apply_bn(st, *bn_args) if bn_args is not None \
             else st
         return step.pre(z)[0]

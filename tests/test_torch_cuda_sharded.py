@@ -1,7 +1,9 @@
-"""Card-only tests of the sharded slice: the fused layer's intra+halo pair
-body (``csrc/fused_layer.cu``) against its plain version on the same
-device, and the host executor's distributed pass on the card against the
-same pass on the CPU.
+"""Card-only tests of the sharded slice: the fused step, the fused layer's
+transform (``csrc/fused_layer.cu``) and the intra+halo pair kernel
+(``csrc/fused_pair.cu``), against its plain version on the same device and,
+without a halo, bit for bit against the one-launch fused kind; and the
+host executor's distributed pass on the card against the same pass on the
+CPU.
 
 They need a CUDA device and nvcc (the kernels build on first use) and skip
 elsewhere. No JAX:
@@ -146,9 +148,9 @@ def _kinds(rng, cuda, f, ho, normal):
 @pytest.mark.gpu
 @pytest.mark.parametrize("normal", [False, True], ids=["integer", "normal"])
 def test_pair_kinds_match_plain(cuda, normal):
-    """Every kind with a halo at f in {7, 500} and ho in {7, 64}: one
-    launch each, sign words bit-exact, fp within the tolerance, two runs
-    bit-equal."""
+    """Every kind with a halo at f in {7, 500} and ho in {7, 64}: the
+    transform and one pair launch each (fc: one launch), sign words
+    bit-exact, fp within the tolerance, two runs bit-equal."""
     rng = np.random.default_rng(21 + normal)
     for f in (7, 500):
         for ho in (7, 64):
@@ -156,12 +158,109 @@ def test_pair_kinds_match_plain(cuda, normal):
                 ops.reset_launch_counts()
                 got, again = run(), run()
                 torch.cuda.synchronize()
-                assert ops.launch_counts()["fused_layer"] == 2, name
+                counts = ops.launch_counts()
+                assert counts["fused_layer"] == 2, name   # transforms
+                assert counts["fused_pair"] == (0 if name == "fc" else 2)
                 assert torch.equal(got, again), (name, f, ho)
                 if mag is None:
                     assert torch.equal(got, plain()), (name, f, ho)
                 else:
                     _hold(got, plain(), mag, (name, f, ho))
+
+
+def _pair_cases(rng, cuda, a, h, a01, h01):
+    """(name, pair args, pair kwargs, sum of |terms| or None) of the pair
+    kernel alone on transform-like rows: fp with and without the self
+    branch and the ReLU at 7, 64 and 160 columns (sub-warp and whole-warp
+    layouts), and sign words at 7, 64 and 160 features in both modes."""
+    fl = fused_layer
+    cases = []
+    for ho in (7, 64, 160):
+        y = _card(rng.standard_normal((a.n_cols, ho)), cuda)
+        ys = _card(rng.standard_normal((a.n_rows, ho)), cuda)
+        rem = _card(rng.standard_normal((h.n_cols, ho)), cuda)
+        mag = fl.agg_fp_pair(a, h, y.abs(), rem.abs())
+        cases.append((f"fp {ho}", (y, None, rem, a, h), {}, mag))
+        cases.append((f"fp+self+relu {ho}", (y, ys, rem, a, h),
+                      dict(relu=True), mag + ys.abs()))
+        yw, remw = _words(rng, a01.n_cols, ho, cuda), \
+            _words(rng, h01.n_cols, ho, cuda)
+        for mode in ("s3_two_popc", "s2_and_andnot"):
+            cases.append((f"words {ho} {mode}", (yw, None, remw, a01, h01),
+                          dict(n_out=ho, trinary_mode=mode), None))
+    return cases
+
+
+@pytest.mark.gpu
+def test_pair_kernel_matches_plain(cuda):
+    """The pair kernel alone against ``pair_plain`` on the hub graph (row
+    5's tile-row has several work items in both matrices), on a shard
+    without halo edges and on a shard without any edge: sign words
+    bit-exact, fp within 1e-5 of the sum of |terms| plus 1e-6, two runs
+    bit-equal, one ``fused_pair`` launch a call and no other kernel."""
+    rng = np.random.default_rng(26)
+    fl = fused_layer
+    graphs = {"hub": (_pair(rng, cuda, scaled=True),
+                      _pair(rng, cuda, scaled=False))}
+    for name, edges in (("empty halo", True), ("empty shard", False)):
+        kw = dict(halo=1, intra_edges=edges, halo_edges=False)
+        graphs[name] = (_pair(rng, cuda, True, **kw),
+                        _pair(rng, cuda, False, **kw))
+    for graph, ((a, h), (a01, h01)) in graphs.items():
+        items, items01 = fl.pair_items(a, h), fl.pair_items(a01, h01)
+        # row 5's intra edges make heavy rows wherever the shard has edges
+        assert (items.n_part > 0) == (graph != "empty shard")
+        for name, args, kw, mag in _pair_cases(rng, cuda, a, h, a01, h01):
+            it = items01 if name.startswith("words") else items
+            ops.reset_launch_counts()
+            got, again = fl.pair(*args, it, **kw), fl.pair(*args, it, **kw)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            assert counts["fused_pair"] == 2 and sum(counts.values()) == 4, \
+                counts        # fused_pair and its form
+            assert torch.equal(got, again), (graph, name)
+            want = fl.pair_plain(*args, **kw)
+            if mag is None:
+                assert torch.equal(got, want), (graph, name)
+            else:
+                _hold(got, want, mag, (graph, name))
+
+
+@pytest.mark.gpu
+def test_pair_step_equals_one_launch_without_halo(cuda):
+    """Without halo edges the pair step (transform, then the pair kernel)
+    adds +0.0 halo sums, so it is bit-equal to the one-launch fused kind on
+    the intra matrix, whose items, sums and epilogue it keeps: GCN "full"
+    (scaled, ReLU), SAGE's self + mean branch, GCN "bin" words 64 -> 7 and
+    layer 1's sign words, BN by the reciprocal in both."""
+    rng = np.random.default_rng(27)
+    fl = fused_layer
+    a, h = _pair(rng, cuda, scaled=True, halo=1, halo_edges=False)
+    am, hm = a._replace(col_scale=None), h._replace(col_scale=None)
+    a01, h01 = _pair(rng, cuda, scaled=False, halo=1, halo_edges=False)
+    n = a.n_rows
+    x, bn = _inputs(rng, n, 500, cuda, normal=True)
+    w1, w2 = _weights(rng, 64, 500, cuda, True), _weights(rng, 64, 500, cuda,
+                                                         True)
+    w7, hw = _weights(rng, 7, 64, cuda, True), _words(rng, n, 64, cuda)
+    rem = torch.zeros((h.n_cols, 64), device=cuda)
+    cases = [
+        ("gcn full", lambda: fl.gcn_bbf_fbf(x, bn, w1, a, True, halo=h,
+                                            rem=rem, bn_rcp=True),
+         lambda: fl.gcn_bbf_fbf(x, bn, w1, a, True, bn_rcp=True)),
+        ("sage", lambda: fl.branch_add(x, bn, w1, w2, am, True, halo=hm,
+                                       rem=rem, bn_rcp=True),
+         lambda: fl.branch_add(x, bn, w1, w2, am, True, bn_rcp=True)),
+        ("gcn bin layer 2", lambda: fl.gcn_bbf_fbf(hw, None, w7, a, halo=h,
+                                                   rem=rem[:, :7]),
+         lambda: fl.gcn_bbf_fbf(hw, None, w7, a)),
+        ("gcn bin layer 1", lambda: fl.gcn_bin_l1(
+            x, bn, w1, a01, halo=h01, rem=_words(rng, h01.n_cols, 64, cuda),
+            bn_rcp=True),
+         lambda: fl.gcn_bin_l1(x, bn, w1, a01, bn_rcp=True)),
+    ]
+    for name, step, one in cases:
+        assert torch.equal(step(), one()), name
 
 
 @pytest.mark.gpu
@@ -272,7 +371,8 @@ def test_sharded_pass_and_routed_serve_on_card(cuda, family):
     """The host executor's distributed pass at P = 2 and 4 on the card,
     fused and unfused, against the same pass on the CPU under the card's
     frozen BN (logits within 1e-4, predictions equal up to ties within
-    it), with the fused pass launching only the fused kernel; routed
+    it), with the fused pass launching only the fused layer and pair
+    kernels; routed
     serve_subgraph bit-exact
     against the single-host card session for the same per-owner batches."""
     data = datasets.make_dataset("cora", seed=0, scale=0.1)
@@ -292,9 +392,9 @@ def test_sharded_pass_and_routed_serve_on_card(cuda, family):
             np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
             _same_predictions(got, want, 1e-4)
             if fused:
-                assert counts["fused_layer"] > 0 and not any(
-                    v for k, v in counts.items()
-                    if not k.startswith("fused_layer")), counts
+                assert counts["fused_layer"] > 0 and counts["fused_pair"] > 0 \
+                    and not any(v for k, v in counts.items()
+                                if not k.startswith("fused_")), counts
             _same_bucket(sess, single)
             owners = sess.routing.owner(nodes)
             served = sess.serve_subgraph(nodes)

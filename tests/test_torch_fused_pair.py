@@ -1,21 +1,26 @@
-"""The fused layer's intra+halo pair body (the sharded executors' step) of
-the port against the reference's.
+"""The sharded executors' fused step (the fused layer's transform, then
+the intra+halo pair kernel) of the port against the reference's.
 
 * The plain pair stages ``agg_fp_pair`` and ``agg_counts_pair`` against the
   reference's ``agg_fp_pair`` and ``agg_counts(intra) + agg_counts(halo)``
   run through ``fused_call`` (Pallas, interpret mode), on a rectangular
   (n_local_pad x n_halo_pad) halo adjacency with hub rows, with an empty
-  halo and an empty shard: counts bit-exact, fp at 1e-5.
-* Each family's layer steps in their one-launch form (``LayerStep.fused``,
-  the plain versions here) against the reference's
+  halo and an empty shard: counts bit-exact, fp at 1e-5; the plain pair
+  step (``pair_plain``, with its epilogue) on tile-rows of several work
+  items in both matrices, and their task list (``pair_items``).
+* Each family's layer steps in their fused form (``LayerStep.fused``, the
+  plain versions here) against the reference's
   ``executor._fused_layer_compute`` of the same step in interpret mode, on
   inputs whose transform sums are exact in any order: packed words
-  bit-exact, fp within 1e-5 of the sum of |terms|.
-* The C interface: ``_Params`` against ``Params`` in ``csrc/fused_layer.cu``
-  and the exported functions against ``build.SIGNATURES``; what the
-  wrapper puts in the struct for a pair launch (halo arrays, the
-  reciprocal of sd, scratch for the intra and halo items), with the
-  library replaced by a recorder; and the pair arguments it refuses.
+  bit-exact, fp within 1e-5 of the sum of |terms|; and ``LayerStep.pair``
+  of ``LayerStep.transform`` bit-equal to ``LayerStep.fused``.
+* The C interface: ``_Params`` / ``_PairParams`` against ``Params`` in
+  ``csrc/fused_layer.cu`` / ``csrc/fused_pair.cu`` and the exported
+  functions against ``build.SIGNATURES``; what the wrappers put in the
+  structs for the step's two launches (the transform with its self
+  branch, the reciprocal of sd; the pair's halo arrays, tasks and
+  scratch), with the library replaced by a recorder; and the pair
+  arguments the wrapper refuses.
 """
 import ctypes
 import re
@@ -38,6 +43,7 @@ from repro.models import gnn as jg  # noqa: E402
 from repro.serve import session_core as jsc  # noqa: E402
 from repro.serve.sharded import executor as jex  # noqa: E402
 tf = lazy("repro_torch.core.frdc")
+tbitops = lazy("repro_torch.core.bitops")
 tbin = lazy("repro_torch.core.binarize")
 tfl = lazy("repro_torch.kernels.fused_layer")
 tbuild = lazy("repro_torch.kernels.build")
@@ -76,6 +82,24 @@ def _pair(rng, scaled=True, intra_p=0.2, halo_p=0.15):
     th = tf.pad_frdc(tf.from_dense(h, device="cpu", **kw_h), PAD_ROWS,
                      PAD_HALO, n_groups=30)
     return (ja, jh), (ta, th)
+
+
+HUB_COLS, HUB_HALO = 600, 620     # a full row: 19 and 20 groups, 2 items
+
+
+def _hub_pair(rng, scaled=True):
+    """A shard whose tile-rows 0 (intra) and 1 (halo) hold a full row, two
+    work items each, in both packages (unpadded): ((jax), (port))."""
+    a = _coo(rng, ROWS, HUB_COLS, 0.03, hub=2)
+    h = _coo(rng, ROWS, HUB_HALO, 0.03, hub=5)
+    kw_a, kw_h = {}, {}
+    if scaled:
+        sr = rng.random(ROWS) + 0.5
+        kw_a = dict(row_scale=sr, col_scale=rng.random(HUB_COLS) + 0.5)
+        kw_h = dict(row_scale=sr, col_scale=rng.random(HUB_HALO) + 0.5)
+    return ((jf.from_dense(a, **kw_a), jf.from_dense(h, **kw_h)),
+            (tf.from_dense(a, device="cpu", **kw_a),
+             tf.from_dense(h, device="cpu", **kw_h)))
 
 
 def _in_kernel(fn, ja, jh, *xs):
@@ -147,6 +171,53 @@ def test_pair_without_halo_edges(case):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got.numpy(), tfl.agg_fp(ta, _t(xl)).numpy(),
                                rtol=1e-6, atol=1e-6)
+
+
+def test_plain_pair_on_hub_rows():
+    """The plain pair step on tile-rows of several work items in both
+    matrices: fp rows through ``agg_fp_pair``, the self branch and the ReLU,
+    and sign words of the two count sums, against the reference in
+    interpret mode (fp at 1e-5, words bit-exact); ``pair`` on the CPU is
+    that plain step; the task list puts every item of the two hub
+    tile-rows first, in item order, then one task a light tile-row."""
+    rng = np.random.default_rng(37)
+    (ja, jh), (ta, th) = _hub_pair(rng)
+    xl = rng.standard_normal((HUB_COLS, 24)).astype(np.float32)
+    xr = rng.standard_normal((HUB_HALO, 24)).astype(np.float32)
+    ys = rng.standard_normal((ROWS, 24)).astype(np.float32)
+
+    def step(a, h, xa, xb, s):
+        return jnp.maximum(s + jfl.agg_fp_pair(a, h, xa, xb), 0.0)
+    want = _in_kernel(step, ja, jh, jnp.asarray(xl), jnp.asarray(xr),
+                      jnp.asarray(ys))
+    got = tfl.pair_plain(_t(xl), _t(ys), _t(xr), ta, th, relu=True)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(tfl.pair(_t(xl), _t(ys), _t(xr), ta, th, relu=True),
+                       got)
+    (ja, jh), (ta, th) = _hub_pair(rng, scaled=False)
+    wl = np.asarray(jax.random.bits(jax.random.PRNGKey(3), (HUB_COLS, 2),
+                                    jnp.uint32))
+    wr = np.asarray(jax.random.bits(jax.random.PRNGKey(4), (HUB_HALO, 2),
+                                    jnp.uint32))
+
+    def counts(a, h, xa, xb):
+        return jfl.agg_counts(a, xa) + jfl.agg_counts(h, xb)
+    want = _in_kernel(counts, ja, jh, jnp.asarray(wl), jnp.asarray(wr))
+    got = tfl.pair_plain(_t(wl.view(np.int32)), None, _t(wr.view(np.int32)),
+                         ta, th, n_out=50)
+    assert torch.equal(got, tbitops.pack_bits(_t(want[:, :50] >= 0),
+                                              axis=-1))
+    items = tfl.pair_items(ta, th)
+    n_i = np.maximum(1, -(-np.diff(ta.grp_ptr.numpy()) // 16))
+    n_h = np.maximum(1, -(-np.diff(th.grp_ptr.numpy()) // 16))
+    assert n_i[0] == 2 and n_h[1] == 2 and (n_i[1:] == 1).all()
+    heavy = [(r, k) for r in range(ta.n_tile_rows)
+             if n_i[r] > 1 or n_h[r] > 1 for k in range(n_i[r] + n_h[r])]
+    light = [(r, -1) for r in range(ta.n_tile_rows)
+             if n_i[r] == 1 and n_h[r] == 1]
+    assert items.n_part == len(heavy) == 6
+    assert items.tasks.dtype == torch.int32
+    assert items.tasks.tolist() == [list(t) for t in heavy + light]
 
 
 def _quant(rng, family, f, h, c):
@@ -224,8 +295,15 @@ def test_fused_steps_match_reference(family, scheme):
             None if rem is None else jnp.asarray(rem), ja, jh))
         trem = None if rem is None else _t(rem.view(np.int32) if js.packed
                                            else rem)
-        got = ts.fused(tst, None if bn is None else tuple(map(_t, bn)), trem,
-                       ta, th, (None, None)).numpy()
+        tbn = None if bn is None else tuple(map(_t, bn))
+        got = ts.fused(tst, tbn, trem, ta, th, None).numpy()
+        if ts.pair is not None:    # the two launches of the fused form
+            y, ys = ts.transform(tst, tbn)
+            assert ts.name == "fc" or (ys is not None) == (family in
+                                                          ("sage", "saint"))
+            np.testing.assert_array_equal(
+                ts.pair(y, ys, trem, ta, th, tfl.pair_items(ta, th)).numpy(),
+                got, err_msg=js.name)
         if js.packed:
             np.testing.assert_array_equal(got.view(np.uint32), want,
                                           err_msg=js.name)
@@ -242,11 +320,8 @@ def _ctype(decl: str):
     return tbuild._L if "long long" in decl else tbuild._I
 
 
-def test_params_and_signature_mirror_source():
-    """``_Params`` has the fields of ``Params`` in ``csrc/fused_layer.cu``
-    in order, the pair's among them, and the source exports what
-    ``build.SIGNATURES`` binds."""
-    text = (CSRC / "fused_layer.cu").read_text()
+def _struct_fields(source: str):
+    text = (CSRC / source).read_text()
     body = re.search(r"struct Params \{(.*?)\n\};", text, re.S).group(1)
     fields = []
     for line in body.splitlines():
@@ -254,24 +329,42 @@ def test_params_and_signature_mirror_source():
         if decl:
             fields.append((re.match(r".*?(\w+);$", decl).group(1),
                            _ctype(decl)))
-    assert fields == list(tfl._Params._fields_)
-    names = [n for n, _ in fields]
-    pair = ["h_grp_ptr", "h_tiles", "h_col_idx", "h_item_ptr", "h_col_scale",
-            "rem", "n_rem", "remc"]
-    i = names.index("h_grp_ptr")
-    assert names[i:i + len(pair)] == pair and "bn_rcp" in names
-    found = {name: tuple(_ctype(p) for p in params.split(","))
-             for name, params in re.findall(
-                 r'extern "C" int (\w+)\(([^)]*)\)', text)}
-    assert found == tbuild.SIGNATURES["fused_layer"]
+    return text, fields
+
+
+def test_params_and_signature_mirror_source():
+    """``_Params`` and ``_PairParams`` have the fields of ``Params`` in
+    ``csrc/fused_layer.cu`` and ``csrc/fused_pair.cu`` in order, the pair's
+    fields only in the latter, and each source exports what
+    ``build.SIGNATURES`` binds. The pair launch is an ordinary one: no
+    cooperative launch, no grid barrier, no scaled copy of rem."""
+    pair = ["h_grp_ptr", "h_tiles", "h_col_idx", "h_col_scale", "row_scale",
+            "tasks", "row_done", "part", "y", "rem", "ys", "out"]
+    for source, struct in (("fused_layer.cu", tfl._Params),
+                           ("fused_pair.cu", tfl._PairParams)):
+        text, fields = _struct_fields(source)
+        assert fields == list(struct._fields_), source
+        names = [n for n, _ in fields]
+        found = {name: tuple(_ctype(p) for p in params.split(","))
+                 for name, params in re.findall(
+                     r'extern "C" int (\w+)\(([^)]*)\)', text)}
+        assert found == tbuild.SIGNATURES[source[:-3]], source
+        assert "remc" not in names and "kPair" not in text
+        if source == "fused_layer.cu":
+            assert "bn_rcp" in names and "h_grp_ptr" not in names
+        else:
+            i = names.index("h_grp_ptr")
+            assert names[i:i + len(pair)] == pair
+            assert "cudaLaunchCooperativeKernel" not in text
+            assert "grid.sync" not in text and "this_grid" not in text
 
 
 class _Recorder:
-    """Stands in for the built library: keeps a copy of each struct and of
-    the BN sd values it points to."""
+    """Stands in for the built libraries: keeps a copy of each struct, of
+    the BN sd values it points to, and of the pair's task list."""
 
     def __init__(self):
-        self.params, self.sd = [], []
+        self.params, self.sd, self.tasks = [], [], []
 
     def fused_layer(self, params, stream):
         p = tfl._Params.from_buffer_copy(params._obj)
@@ -280,16 +373,25 @@ class _Recorder:
             (ctypes.c_float * p.f).from_address(p.sd)).copy())
         return 0
 
+    def fused_pair(self, params, stream):
+        p = tfl._PairParams.from_buffer_copy(params._obj)
+        self.params.append(p)
+        self.tasks.append(np.ctypeslib.as_array(
+            (ctypes.c_int32 * (2 * p.n_tasks)).from_address(p.tasks)).copy())
+        return 0
+
 
 def test_launch_fills_pair_fields(monkeypatch):
-    """What ``_launch`` hands the kernel for a pair launch: the halo's
-    arrays and work items, rem with its row count and a scratch of its
-    shape for the scaled rows, sd replaced by 1 / sd under ``bn_rcp``, and
-    partial-sum scratch for the intra and the halo items."""
+    """What the wrappers hand the kernels for the step's two launches: the
+    transform with aggregate = 0, the self branch's weights and rows, and
+    sd replaced by 1 / sd under ``bn_rcp``; the pair with both matrices'
+    arrays and column scales, the shared row scale, the self branch, the
+    task list of ``pair_items`` and scratch for its heavy rows' items only
+    (no copy of rem), and words with their feature count."""
     import repro_torch.kernels.build as build
     import torch as torch_mod
     rng = np.random.default_rng(35)
-    _, (ta, th) = _pair(rng)
+    _, (ta, th) = _hub_pair(rng)
     rec = _Recorder()
     sizes = {}
     real_empty = torch_mod.empty
@@ -301,53 +403,76 @@ def test_launch_fills_pair_fields(monkeypatch):
     monkeypatch.setattr(build, "library", lambda name: rec)
     monkeypatch.setattr(torch_mod.cuda, "current_stream",
                         lambda dev=None: type("S", (), {"cuda_stream": 0}))
-    real_like = torch_mod.empty_like
-
-    def empty_like(t, **kw):
-        out = real_like(t, **kw)
-        sizes[out.data_ptr()] = out.numel()
-        return out
     monkeypatch.setattr(torch_mod, "empty", empty)
-    monkeypatch.setattr(torch_mod, "empty_like", empty_like)
     w = tbin.BinTensor(torch.zeros((16, 2), dtype=torch.int32),
                        torch.ones((16, 1)), 40)
     x = torch.zeros((PAD_ROWS, 40))
     bn = (torch.zeros((1, 40)), torch.full((1, 40), 4.0))
-    rem = torch.zeros((PAD_HALO, 16))
-    tfl._launch(x, bn, w, ta, halo=th, rem=rem, bn_rcp=True)
+    y, ys = tfl._launch(x, bn, w, None, w_s=w, bn_rcp=True, form="transform")
     p = rec.params[-1]
-    assert p.aggregate == 1 and p.bn_rcp == 1 and p.n_rem == PAD_HALO
-    assert p.h_grp_ptr == th.grp_ptr.data_ptr()
-    assert p.h_tiles == th.tiles.data_ptr()
-    assert p.h_col_idx == th.col_idx.data_ptr()
-    assert p.h_col_scale == th.col_scale.data_ptr()
-    assert p.rem == rem.data_ptr() and sizes[p.remc] == rem.numel()
-    assert p.h_item_ptr is not None
-    items = tbk.max_items(ta) + tbk.max_items(th)
-    assert sizes[p.part] == items * 4 * 16
+    assert p.aggregate == 0 and p.bn_rcp == 1 and p.out == y.data_ptr()
+    assert p.ys == ys.data_ptr() and p.w_s == w.packed.data_ptr()
+    assert tuple(y.shape) == tuple(ys.shape) == (PAD_ROWS, 16)
     # the struct's sd is the reciprocal the plain version takes
     assert np.all(rec.sd[-1] == np.float32(0.25))
-    # packed rem: no scratch, the walk reads it as it is
-    remw = torch.zeros((PAD_HALO, 1), dtype=torch.int32)
-    tfl._launch(x, bn, w, ta._replace(row_scale=None, col_scale=None),
-                fbb=True, halo=th._replace(row_scale=None, col_scale=None),
-                rem=remw)
+    y, ys = torch.zeros((HUB_COLS, 16)), torch.zeros((ROWS, 16))
+    rem = torch.zeros((HUB_HALO, 16))
+    items = tfl.pair_items(ta, th)
+    out = tfl._pair_launch(y, ys, rem, ta, th, items, True, None,
+                           "s3_two_popc")
     p = rec.params[-1]
-    assert p.fbb == 1 and p.remc is None and p.rem == remw.data_ptr()
-    assert p.bn_rcp == 0 and np.all(rec.sd[-1] == np.float32(4.0))
+    assert (p.grp_ptr, p.tiles, p.col_idx, p.col_scale) == (
+        ta.grp_ptr.data_ptr(), ta.tiles.data_ptr(), ta.col_idx.data_ptr(),
+        ta.col_scale.data_ptr())
+    assert (p.h_grp_ptr, p.h_tiles, p.h_col_idx, p.h_col_scale) == (
+        th.grp_ptr.data_ptr(), th.tiles.data_ptr(), th.col_idx.data_ptr(),
+        th.col_scale.data_ptr())
+    assert p.row_scale == ta.row_scale.data_ptr()
+    assert (p.y, p.rem, p.ys, p.out) == (y.data_ptr(), rem.data_ptr(),
+                                         ys.data_ptr(), out.data_ptr())
+    assert (p.n_y, p.n_rem, p.n_rows) == (HUB_COLS, HUB_HALO, ROWS)
+    assert (p.ho, p.fbb, p.relu, p.n_tile_rows) == (16, 0, 1, ta.n_tile_rows)
+    assert p.chunk == tbk.GROUPS_PER_ITEM
+    assert (p.fp_sub, p.fp_cols) == (16, 1)
+    assert np.array_equal(rec.tasks[-1], items.tasks.numpy().ravel())
+    assert p.n_tasks == items.tasks.shape[0] and items.n_part > 0
+    assert sizes[p.part] == items.n_part * 4 * 16
+    assert sizes[p.row_done] == ta.n_tile_rows
+    # words: the counts instance, no scales, no scratch without heavy rows
+    remw = torch.zeros((HUB_HALO, 1), dtype=torch.int32)
+    yw = torch.zeros((HUB_COLS, 1), dtype=torch.int32)
+    a01 = ta._replace(row_scale=None, col_scale=None)
+    h01 = th._replace(row_scale=None, col_scale=None)
+    light = tfl.PairItems(torch.stack([torch.arange(ta.n_tile_rows),
+                                       torch.full((ta.n_tile_rows,), -1)], 1)
+                          .to(torch.int32), 0)
+    tfl._pair_launch(yw, None, remw, a01, h01, light, False, 7,
+                     "s2_and_andnot")
+    p = rec.params[-1]
+    assert (p.fbb, p.ho, p.s2) == (1, 7, 1)
+    assert p.col_scale is None and p.h_col_scale is None and p.ys is None
+    assert p.part is None and p.row_done is None and p.rem == remw.data_ptr()
 
 
 def test_launch_refuses_bad_pairs():
     rng = np.random.default_rng(36)
     _, (ta, th) = _pair(rng)
-    w = tbin.BinTensor(torch.zeros((16, 2), dtype=torch.int32),
-                       torch.ones((16, 1)), 40)
-    x = torch.zeros((PAD_ROWS, 40))
+    y = torch.zeros((PAD_ROWS, 16))
+    args = (ta, th, None, False, None, "s3_two_popc")
     with pytest.raises(ValueError, match="rem"):
-        tfl._launch(x, None, w, ta, halo=th)               # no rows
-    with pytest.raises(ValueError, match="halo"):
-        tfl._launch(x, None, w, ta, halo=th,
-                    rem=torch.zeros((PAD_HALO, 8)))        # wrong width
-    with pytest.raises(ValueError, match="halo"):
-        tfl._launch(x, None, w, ta, halo=th,
-                    rem=torch.zeros((PAD_HALO - 4, 16)))   # too few rows
+        tfl._pair_launch(y, None, torch.zeros((PAD_HALO, 8)), *args)
+    with pytest.raises(ValueError, match="halo"):                # too few rows
+        tfl._pair_launch(y, None, torch.zeros((PAD_HALO - 4, 16)), *args)
+    with pytest.raises(ValueError, match="rem"):                 # dtypes
+        tfl._pair_launch(y, None, torch.zeros((PAD_HALO, 16),
+                                              dtype=torch.int32), *args)
+    with pytest.raises(ValueError, match="halo"):                # its rows
+        tfl._pair_launch(y, None, torch.zeros((PAD_HALO, 16)), ta,
+                         th._replace(n_rows=PAD_ROWS - 4), *args[2:])
+    with pytest.raises(ValueError, match="self branch"):
+        tfl._pair_launch(y, torch.zeros((PAD_ROWS, 8)),
+                         torch.zeros((PAD_HALO, 16)), *args)
+    yw = torch.zeros((PAD_ROWS, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="output features"):     # no n_out
+        tfl._pair_launch(yw, None, torch.zeros((PAD_HALO, 1),
+                                               dtype=torch.int32), *args)

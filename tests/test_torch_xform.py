@@ -82,7 +82,7 @@ def _ctype(decl: str):
 
 
 @pytest.mark.parametrize("source", ["pack", "bmm", "bspmm", "bspmm_grid",
-                                    "fused_layer"])
+                                    "fused_layer", "fused_pair"])
 def test_signatures_match_sources(source):
     """Every ``extern "C"`` function of a source, and nothing else, is in
     ``build.SIGNATURES`` with its parameters' types in order."""
