@@ -183,6 +183,22 @@ result):
    above 0. (c) ``block_remat`` on (a)'s config, one loss and gradient
    step: the loss bit-equal to the plain forward's, every gradient leaf
    within 1e-2 of its max |g|, both peak-memory readings.
+17. the dry run (``run_dryrun``) — no kernel runs. (a) the full configs'
+   cells through the launchers, ``launch/train.py --arch smollm-135m
+   --mesh single`` (train_4k, with probes) and ``launch/serve.py --arch
+   stablelm-1.6b --mesh single`` (decode_32k, whole): each traced on meta
+   DTensors over the (16, 16) mesh of a fake process group; prints the
+   per-device HBM bytes (and whether they fit the card), flops, bytes,
+   collective bytes by op and the seconds; then the train cell traced at
+   its full depth, whose flops, bytes and collective bytes the probes
+   must equal within 1e-9. (b) the estimate against the card: the dry
+   run's trace on a 1 x 1 host mesh of 16a's first step (smollm-135m,
+   batch 8 x 128, AdamW, fresh ``init_params`` and ``opt.init``) and of one
+   ``decode_step`` of stablelm-1.6b at batch 4, cache 512, against
+   ``torch.cuda.max_memory_allocated()`` over the same step on the card
+   (above what lived before its arguments were built; two steps from fresh
+   arguments): the phase fails where an estimate sits more than 15% below
+   a measured peak.
 
 Output: a JSON line with one record per kernel, the card's name and power
 limit from nvidia-smi, and last the line
@@ -273,6 +289,9 @@ GRAD_ARCHS = ("smollm-135m", "qwen2-moe-a2.7b", "zamba2-1.2b", "rwkv6-3b",
               "seamless-m4t-medium")   # phase 16 (b): every block family
 GRAD_B, GRAD_T = 2, 32     # phase 16 (b): tests/test_arch_smoke.py's batch
 REMAT_TOL = 1e-2           # phase 16 (c): remat grads, of each leaf's max |g|
+DRY_SERVE_ARCH = "stablelm-1.6b"   # phase 17 (a): launch/serve.py's default
+DRY_DECODE = (4, 512)      # phase 17 (b): decode batch, cache length (15a's)
+DRY_UNDER = 0.15           # phase 17 (b): the most an estimate may fall short
 # phase 13: model -> (training forward, family, adjacency kinds, epochs, lr),
 # the recipes of benchmarks/accuracy_experiment.py
 TRAIN = {"FP32": ("gcn_forward_fp", "gcn", ("gcn",), 150, 1e-2),
@@ -772,6 +791,7 @@ def run(torch) -> dict:
             engine_launches, train_launches, replica_launches))
     run_token(torch)
     run_lm_train(torch)
+    run_dryrun(torch)
     return {"kernels": records}
 
 
@@ -3157,6 +3177,145 @@ def run_lm_train(torch) -> None:
     del params, res, grads
     torch.cuda.empty_cache()
     log(f"phase 16: {time.perf_counter() - t_start:.1f} s ({card})")
+
+
+def run_dryrun(torch) -> None:
+    """Phase 17: the dry run of the full configs, and its memory estimate
+    held against the card (see the module docstring). Launches none of
+    the GNN kernels; a failed check raises."""
+    import contextlib
+    import io
+
+    import numpy as np
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer
+    from repro_torch.optim.optimizer import AdamW, cosine_schedule
+    from repro_torch.train.train_step import make_serve_step, make_train_step
+
+    t_start = time.perf_counter()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    total = torch.cuda.get_device_properties(0).total_memory
+
+    # -- 17a. the full configs' cells through the launchers ------------------
+    cells = {}
+    for name, launcher, arch in (("train_4k", train_launcher, LM_ARCH),
+                                 ("decode_32k", serve_launcher,
+                                  DRY_SERVE_ARCH)):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            r = launcher.main(["--arch", arch, "--mesh", "single"])
+        if json.loads(out.getvalue()) != r:
+            raise AssertionError(f"phase 17a {arch}: the launcher printed "
+                                 "another result than it returned")
+        cells[name] = r
+        mem = r["memory"]["per_device_hbm_bytes"]
+        log(f"phase 17a {arch} {name} single ({card}): " + json.dumps(dict(
+            n_devices=r["n_devices"], mode=r["mode"],
+            per_device_hbm_bytes=mem, fits_card=mem <= total,
+            card_total_memory=total, memory=r["memory"],
+            flops_per_device=r["flops_per_device"],
+            bytes_per_device=r["bytes_per_device"],
+            collective_bytes_per_device=r["collective_bytes_per_device"],
+            collectives_by_op=r["collectives_scanned_program"],
+            lower_s=r["lower_s"], probe_s=r["probe_s"],
+            total_s=time.perf_counter() - t0)))
+        if not (r["n_devices"] == 256 and mem > 0
+                and r["flops_per_device"] > 0
+                and r["collective_bytes_per_device"] > 0):
+            raise AssertionError(f"phase 17a {arch}: {r}")
+    # the probes against the full trace on the train cell
+    t0 = time.perf_counter()
+    full = dryrun.run_cell(LM_ARCH, "train_4k", "single", probe=False)
+    rel = {k: abs(cells["train_4k"][k] - full[k]) / full[k] for k in (
+        "flops_per_device", "bytes_per_device",
+        "collective_bytes_per_device")}
+    log(f"phase 17a {LM_ARCH} train_4k, probes against the full trace: "
+        + json.dumps(dict(rel_diff=rel, full_s=time.perf_counter() - t0)))
+    if max(rel.values()) > 1e-9:
+        raise AssertionError(f"phase 17a: probes off the full trace {rel}")
+
+    # -- 17b. the estimate on a 1 x 1 host mesh against the card -------------
+    def measured(build, run):
+        """Peak bytes allocated above what lived before ``build`` made
+        the step's arguments, over one ``run`` of the step, twice from
+        fresh arguments: the first may also allocate what the process
+        then keeps (a thread's cuBLAS workspace)."""
+        peaks = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            args = build()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = run(*args)
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated() - base)
+            del args, out
+        torch.cuda.empty_cache()
+        return peaks
+
+    rows = {}
+    opt = AdamW(lr=cosine_schedule(LM_LR, 10, LM_STEPS), clip_norm=1.0)
+    plain = dict(remat=False, seq_shard=False, q_chunk=0, donate_cache=False)
+    lm = token_config(LM_ARCH)
+    sample = SyntheticLM(lm.vocab, LM_SEQ).sample(
+        np.random.default_rng(SEED), LM_BATCH)
+
+    def build_train():
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        params = transformer.init_params(lm, gen, DEVICE)
+        batch = {k: torch.from_numpy(v).to(DEVICE)
+                 for k, v in sample.items()}
+        return params, opt.init(params), batch
+
+    dec = token_config(DRY_SERVE_ARCH)
+    b, s_len = DRY_DECODE
+
+    def build_decode():
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        params = transformer.init_params(dec, gen, DEVICE)
+        cache = transformer.init_cache(dec, b, s_len, device=DEVICE)
+        tokens = torch.zeros((b, 1), dtype=torch.int32, device=DEVICE)
+        return params, cache, tokens, s_len - 1
+
+    for name, cfg, shape, build, step in (
+            (f"{LM_ARCH} train {LM_BATCH}x{LM_SEQ}", lm,
+             ShapeConfig("train", LM_SEQ, LM_BATCH, "train"), build_train,
+             make_train_step(lm, opt, unroll=False)),
+            (f"{DRY_SERVE_ARCH} decode {b}x1, cache {s_len}", dec,
+             ShapeConfig("decode", s_len, b, "decode"), build_decode,
+             make_serve_step(dec))):
+        t0 = time.perf_counter()
+        with make_host_mesh() as mesh:
+            est = dryrun._trace_cell(cfg, shape, mesh, plain,
+                                     unroll=shape.kind == "decode", opt=opt)
+        trace_s = time.perf_counter() - t0
+        first, second = measured(build, step)
+        rows[name] = dict(estimate=int(est["peak"]),
+                          measured_first=int(first),
+                          measured_second=int(second),
+                          ratio_first=est["peak"] / first,
+                          ratio_second=est["peak"] / second,
+                          argument=int(est["argument"]), trace_s=trace_s)
+    ok = all(r["estimate"] >= (1 - DRY_UNDER) * max(r["measured_first"],
+                                                    r["measured_second"])
+             for r in rows.values())
+    log(f"phase 17b estimate / measured peak bytes ({card}): "
+        + json.dumps(rows))
+    if not ok:
+        raise AssertionError(f"phase 17b: an estimate sits more than "
+                             f"{DRY_UNDER:.0%} below the measured peak: "
+                             f"{rows}")
+    log(f"phase 17: {time.perf_counter() - t_start:.1f} s ({card})")
 
 
 def main() -> int:

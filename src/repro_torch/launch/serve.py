@@ -6,9 +6,9 @@
 Host mode: the reduced config of ``--arch`` with seeded random weights,
 served by the ``serve.engine.ServeEngine`` shim (``max_batch=4``,
 ``max_len=256``) on the card unless ``--device cpu``; prints the
-reference's summary line. ``--mesh single|multi`` (the reference's decode
-dry run on a TPU mesh) exits with a message: the dry run comes with
-ROADMAP Slice F-b.
+reference's summary line. ``--mesh single|multi`` runs the full config's
+``decode_32k`` cell through the dry run instead (``launch/dryrun.py``) and
+prints its JSON.
 """
 from __future__ import annotations
 
@@ -28,9 +28,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.mesh in ("single", "multi"):
-        raise SystemExit(f"--mesh {args.mesh}: the decode dry run of the full "
-                         "config on a device mesh comes with ROADMAP Slice "
-                         "F-b")
+        import json
+        from . import dryrun
+        r = dryrun.run_cell(args.arch, "decode_32k", args.mesh,
+                            quant=args.quant)
+        print(json.dumps(r, indent=2))
+        return r
 
     import numpy as np
     import torch

@@ -6,8 +6,9 @@
 Host mode: trains the reduced config of ``--arch`` for real, on the card
 unless ``--device cpu``, with the reference's recipe (AdamW on a cosine
 schedule, clip norm 1.0, a checkpoint every 25 steps) and its summary line.
-``--mesh single|multi`` (the reference's dry run of the full config on a
-TPU mesh) exits with a message: the dry run comes with ROADMAP Slice F-b.
+``--mesh single|multi`` runs the full config's ``train_4k`` cell through
+the dry run instead (``launch/dryrun.py``: the 256- or 512-card mesh over a
+fake process group, tensors on the meta device) and prints its JSON.
 ``--quant bitgnn`` trains bit-packed projections, which neither package
 can differentiate: the step raises ``TypeError`` as the reference's does.
 The reference's ``--xla-flags`` is left out: it hands flags to XLA's
@@ -37,8 +38,11 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.mesh in ("single", "multi"):
-        raise SystemExit(f"--mesh {args.mesh}: the dry run of the full config "
-                         "on a device mesh comes with ROADMAP Slice F-b")
+        import json
+        from . import dryrun
+        r = dryrun.run_cell(args.arch, "train_4k", args.mesh, quant=args.quant)
+        print(json.dumps(r, indent=2))
+        return r
 
     import torch
     from ..configs import get_config, reduced_config

@@ -42,15 +42,32 @@ def _promoted(*ts):
     return [t if t.dtype == dt else t.to(dt) for t in ts]
 
 
+def _on_mesh(ts) -> bool:
+    """Whether an operand is a DTensor (a dry run on a device mesh)."""
+    if all(type(t) is torch.Tensor for t in ts):
+        return False
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(t, DTensor) for t in ts)
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` in the promoted dtype of the two, as ``jnp.matmul``."""
     a, b = _promoted(a, b)
+    if _on_mesh((a, b)) and b.ndim == 2:
+        lead = "abcdefgh"[:a.ndim - 1]
+        return einsum(f"{lead}y,yz->{lead}z", a, b)
     return torch.matmul(a, b)
 
 
 def einsum(spec: str, *ts: torch.Tensor) -> torch.Tensor:
-    """``jnp.einsum`` with JAX's dtype promotion."""
-    return torch.einsum(spec, *_promoted(*ts))
+    """``jnp.einsum`` with JAX's dtype promotion. On DTensors the
+    contraction runs on the local shards
+    (``distributed.sharding.mesh_einsum``)."""
+    ts = _promoted(*ts)
+    if _on_mesh(ts):
+        from ..distributed.sharding import mesh_einsum
+        return mesh_einsum(spec, *ts)
+    return torch.einsum(spec, *ts)
 
 
 # ---------------------------------------------------------------------------
@@ -367,7 +384,11 @@ def init_embedding(gen, cfg: ModelConfig, dtype, device="cuda"):
 
 
 def embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens]
+    table = params["table"]
+    if _on_mesh((table,)):
+        from ..distributed.sharding import mesh_embed
+        return mesh_embed(table, tokens)
+    return table[tokens]
 
 
 def lm_head(params, x: torch.Tensor, logical_vocab: int) -> torch.Tensor:

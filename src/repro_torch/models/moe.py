@@ -50,7 +50,10 @@ def _route(flat: torch.Tensor, router: torch.Tensor, cfg: ModelConfig,
     (gate_vals, expert_idx), each (..., k); ties go to the lower index."""
     logits = matmul(flat.float(), router)                         # (..., E)
     if e > cfg.moe_experts:  # mask padded experts out of routing
-        logits[..., cfg.moe_experts:] += -1e9
+        # out of place: in a dry run on a mesh the logits may be partial
+        # sums, which an in-place add cannot take (the same values)
+        m = cfg.moe_experts
+        logits = torch.cat([logits[..., :m], logits[..., m:] + -1e9], dim=-1)
     gates_all = torch.softmax(logits, dim=-1)
     vals, idx = torch.sort(gates_all, dim=-1, descending=True, stable=True)
     gate_vals, expert_idx = vals[..., :k], idx[..., :k]

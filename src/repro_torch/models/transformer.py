@@ -11,8 +11,9 @@ The blocks run as a Python loop over layers. ``unroll=False`` (the
 reference's ``lax.scan`` over stacked layers) is accepted and computes the
 same thing. ``block_remat`` recomputes each decoder block in the backward
 pass (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
-around a block); the sharding constraints need a device mesh and raise
-``NotImplementedError``.
+around a block). Where the reference constrains an activation's sharding
+(``with_sharding_constraint``), the port redistributes a DTensor
+activation to the given placements; a plain tensor passes unchanged.
 
 Decode positions are host ints, and the attention caches are updated in
 place (see ``layers``). Parameter and cache trees move between the packages
@@ -228,6 +229,17 @@ def _apply_block(bp, kind, x, positions, cfg, unroll, q_chunk,
     raise ValueError(kind)
 
 
+def _constrain(h: torch.Tensor, placements) -> torch.Tensor:
+    """``h`` redistributed to ``placements`` when it is a DTensor (the
+    reference's ``with_sharding_constraint``); else ``h`` itself."""
+    if placements is None:
+        return h
+    from torch.distributed.tensor import DTensor
+    if not isinstance(h, DTensor):
+        return h
+    return h.redistribute(h.device_mesh, placements)
+
+
 def _positions(b: int, t: int, cfg, device) -> layers.Rotary:
     """RoPE at positions 0..t-1 of b rows, shared by every layer."""
     return layers.Rotary(torch.arange(t, device=device).expand(b, t),
@@ -280,10 +292,14 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     ``torch.utils.checkpoint`` (non-reentrant), so the backward pass keeps
     only the block boundaries and recomputes the rest, as the reference's
     ``jax.checkpoint`` around a block does. The encoder's blocks are not
-    wrapped, as in the reference."""
-    if boundary_sharding is not None or logits_sharding is not None:
-        raise NotImplementedError(
-            "sharding constraints need a device mesh (ROADMAP Q1-3)")
+    wrapped, as in the reference.
+
+    ``boundary_sharding``: placements the residual stream takes between
+    blocks, e.g. (dp, "model", None) as ``Shard`` placements for
+    Megatron-style sequence-parallel boundaries; ``logits_sharding``:
+    placements of the (B, T, V) logits. Each applies to DTensor
+    activations (a dry run on a mesh) and leaves plain tensors as they
+    are."""
     x = embed(params["embed"], tokens)
     if cfg.family == "vlm":
         if image_embeds is None:
@@ -316,8 +332,10 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
                 blockfn, bp, x, pattern[i], ekv, use_reentrant=False)
         else:
             x = blockfn(bp, x, pattern[i], ekv)
+        x = _constrain(x, boundary_sharding)
     x = rmsnorm(x, params["final_ln"]["scale"])
-    return lm_head(params["embed"], x, cfg.vocab)
+    return _constrain(lm_head(params["embed"], x, cfg.vocab),
+                      logits_sharding)
 
 
 # ---------------------------------------------------------------------------

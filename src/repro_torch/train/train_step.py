@@ -1,5 +1,7 @@
 """Train-step builder: loss, gradients, AdamW update (reference:
-``repro/train/train_step.py``).
+``repro/train/train_step.py``). Also :func:`input_specs`: the inputs of
+every (arch x shape) dry-run cell as meta-device tensors (shapes and
+dtypes, no storage), where the reference returns ``ShapeDtypeStruct``s.
 
 The reference differentiates with ``jax.value_and_grad`` under ``jit``;
 here the step runs eagerly and :func:`value_and_grad` takes the gradients
@@ -9,9 +11,6 @@ the loss does not reach gets zeros, as in JAX). Like ``jax.value_and_grad``
 it refuses a tree with integer leaves, such as the bit-packed
 ``{"packed", "scale"}`` projections of ``quant.binary_linear``, with
 ``TypeError``: there is no quantized training in either package.
-
-The reference's ``input_specs`` (the abstract inputs of a dry-run cell)
-belongs to the dry run and comes with it (ROADMAP Slice F-b).
 """
 from __future__ import annotations
 
@@ -20,10 +19,43 @@ from typing import Any, Callable
 import torch
 import torch.nn.functional as F
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeConfig
 from ..models import transformer
 from ..optim.optimizer import AdamW, AdamWState, tree_leaves, tree_map
 from ..quant import grad_compress as gc
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Model inputs of one dry-run cell, on the meta device.
+
+    train/prefill: token batch (+ stub frontend tensors for vlm/audio);
+    decode: one-token batch + the KV/state cache at seq_len, and ``pos`` a
+    0-d int32 (``decode_step`` itself takes a host int).
+    """
+    b, t = shape.global_batch, shape.seq_len
+
+    def sds(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+    if shape.kind in ("train", "prefill"):
+        t_text = t
+        batch = {}
+        if cfg.family == "vlm":
+            t_text = t - cfg.frontend_len
+            batch["image_embeds"] = sds((b, cfg.frontend_len,
+                                         cfg.frontend_dim), torch.bfloat16)
+        if cfg.is_encdec:
+            batch["frames"] = sds((b, cfg.frontend_len, cfg.frontend_dim),
+                                  torch.bfloat16)
+        batch["tokens"] = sds((b, t_text), torch.int32)
+        if shape.kind == "train":
+            batch["labels"] = sds((b, t_text), torch.int32)
+        return batch
+    # decode: cache holds seq_len history
+    cache = transformer.init_cache(
+        cfg, b, t, enc_len=cfg.frontend_len if cfg.is_encdec else 0,
+        device="meta")
+    return {"tokens": sds((b, 1), torch.int32), "cache": cache,
+            "pos": sds((), torch.int32)}
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,9 @@ def _port_files():
     assert (ROOT / "src" / "repro_torch" / "serve" / "token_engine.py").is_file()
     for rel in ("data/pipeline.py", "quant/grad_compress.py",
                 "train/train_step.py", "train/trainer.py", "launch/train.py",
-                "launch/serve.py"):
+                "launch/serve.py", "env.py", "distributed/sharding.py",
+                "distributed/hlo_analysis.py", "launch/dryrun.py",
+                "launch/mesh.py"):
         assert (ROOT / "src" / "repro_torch" / rel).is_file(), rel
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
@@ -52,7 +54,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.serve.token_engine, repro_torch.serve.engine, "
             "repro_torch.data.pipeline, repro_torch.quant.grad_compress, "
             "repro_torch.train.train_step, repro_torch.train.trainer, "
-            "repro_torch.launch.train, repro_torch.launch.serve; "
+            "repro_torch.launch.train, repro_torch.launch.serve, "
+            "repro_torch.env, repro_torch.distributed.sharding, "
+            "repro_torch.distributed.hlo_analysis, "
+            "repro_torch.launch.dryrun, repro_torch.launch.mesh; "
             "from repro_torch.serve.sharded.planner import validate_reshard; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad")

@@ -17,6 +17,7 @@ Tolerances:
   (``tests/test_distribution.py``, ``tests/test_properties.py``) with
   their bounds and hypothesis settings.
 """
+import json
 import threading
 import time
 
@@ -219,11 +220,13 @@ def test_ef_residual_bounded(seed, steps):
     assert float(torch.max(torch.abs(err))) < 10.0
 
 
-def test_launchers_on_the_cpu(tmp_path, capsys):
+def test_launchers_on_the_cpu(tmp_path, capsys, monkeypatch):
     """Both launchers' ``main()`` with ``--device cpu`` and tiny arguments
-    print the reference's summary lines; ``--mesh single|multi`` exits
-    naming Slice F-b; ``--quant bitgnn`` training fails with the step's
-    ``TypeError``, as the reference's does."""
+    print the reference's summary lines; ``--mesh single|multi`` hands the
+    reference's cell (``train_4k`` / ``decode_32k``, the mesh, ``--quant``)
+    to the dry run's ``run_cell`` and prints its JSON; ``--quant bitgnn``
+    training fails with the step's ``TypeError``, as the reference's
+    does."""
     tlt.main(["--device", "cpu", "--steps", "3", "--batch", "2", "--seq",
               "16", "--ckpt-dir", str(tmp_path / "a")])
     out = capsys.readouterr().out
@@ -232,10 +235,21 @@ def test_launchers_on_the_cpu(tmp_path, capsys):
     tls.main(["--device", "cpu", "--requests", "3", "--max-new", "4"])
     out = capsys.readouterr().out
     assert out.startswith("served 3 requests, 12 tokens in "), out
-    for main in (tlt.main, tls.main):
+    calls = []
+
+    def recorder(*args, **kwargs):
+        calls.append((args, kwargs))
+        return {"cell": len(calls)}
+    monkeypatch.setattr("repro_torch.launch.dryrun.run_cell", recorder)
+    for main, shape in ((tlt.main, "train_4k"), (tls.main, "decode_32k")):
         for mesh in ("single", "multi"):
-            with pytest.raises(SystemExit, match="Slice F-b"):
-                main(["--mesh", mesh])
+            for quant in ("none", "bitgnn"):
+                assert main(["--arch", "rwkv6-3b", "--mesh", mesh,
+                             "--quant", quant]) == {"cell": len(calls)}
+                assert calls[-1] == (("rwkv6-3b", shape, mesh),
+                                     {"quant": quant})
+                assert json.loads(capsys.readouterr().out) == \
+                    {"cell": len(calls)}
     with pytest.raises(TypeError, match="real- or complex-valued"):
         tlt.main(["--device", "cpu", "--steps", "2", "--batch", "2", "--seq",
                   "16", "--quant", "bitgnn", "--ckpt-dir",

@@ -197,8 +197,14 @@ def test_block_remat_matches_plain_forward():
         assert torch.equal(out[0][0], out[1][0]), arch
         for a, b in zip(_leaves(out[0][1]), _leaves(out[1][1])):
             assert torch.equal(a, b), arch
-    with pytest.raises(NotImplementedError, match="Q1-3"):
-        tt.forward(params, tcfg, batch["tokens"], boundary_sharding=object())
+    # the sharding arguments leave plain tensors as they are
+    from torch.distributed.tensor import Replicate, Shard
+    kw = {k: batch[k] for k in ("image_embeds", "frames") if k in batch}
+    assert torch.equal(
+        tt.forward(params, tcfg, batch["tokens"],
+                   boundary_sharding=[Shard(0)],
+                   logits_sharding=[Replicate()], **kw),
+        tt.forward(params, tcfg, batch["tokens"], **kw))
 
 
 def test_quantized_params_refused_by_both():

@@ -312,14 +312,18 @@ def test_init_params_and_cache_trees_match_reference():
 
 def test_unsupported_options_raise():
     """What needs a mesh raises, naming where it comes (ROADMAP Q1-3);
-    ``block_remat`` (since LM training) computes the plain forward."""
+    ``block_remat`` (since LM training) computes the plain forward, and
+    the sharding arguments (since the dry run) leave plain tensors as they
+    are."""
     cfg, tcfg = _cfgs("qwen2-moe-a2.7b", "float32")
     pt = tt.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
     tok = torch.zeros((1, 4), dtype=torch.int64)
     assert torch.equal(tt.forward(pt, tcfg, tok, block_remat=True),
                        tt.forward(pt, tcfg, tok))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tt.forward(pt, tcfg, tok, boundary_sharding=object())
+    from torch.distributed.tensor import Replicate, Shard
+    assert torch.equal(tt.forward(pt, tcfg, tok, boundary_sharding=[Shard(0)],
+                                  logits_sharding=[Replicate()]),
+                       tt.forward(pt, tcfg, tok))
     with pytest.raises(NotImplementedError, match="Q1-3"):
         tt.forward(pt, dataclasses.replace(tcfg, moe_groups=-1), tok)
     # unroll=False computes what the unrolled forward computes
