@@ -210,6 +210,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -299,6 +300,9 @@ TRAIN = {"FP32": ("gcn_forward_fp", "gcn", ("gcn",), 150, 1e-2),
          "STE-bin": ("gcn_forward_ste_bin", "gcn", ("binary", "gcn"), 300,
                      3e-2),
          "SAGE Bi-GCN": ("sage_forward_bigcn", "sage", ("mean",), 300, 3e-2)}
+SPMD_PASSES = 3            # phase 18: timed passes of each way a rank
+SPMD_TIMEOUT_S = 420       # phase 18: the world's limit, start to join
+ALLREDUCE_N = 1 << 20      # phase 18: floats of each rank's gradient
 # the distributed passes: name -> (family, scheme, fused)
 SHARDED_WAYS = {"gcn_bin/unfused": ("gcn", "bin", False),
                 "gcn_bin/fused": ("gcn", "bin", True),
@@ -779,9 +783,15 @@ def run(torch) -> dict:
     log(f"phases 1-4: {time.perf_counter() - t_start:.1f} s")
     serve_records, single, params, stores = run_serve(torch, flickr)
     records += serve_records
-    sharded_records, sharded_store = run_sharded(torch, flickr, single,
-                                                 params)
-    records += sharded_records
+    with tempfile.TemporaryDirectory(prefix="sharded-") as art:
+        sharded_records, sharded_store, phase8 = run_sharded(
+            torch, flickr, single, params, art)
+        records += sharded_records
+        spmd_launches = run_spmd(torch, art, phase8)
+    for rec in records:
+        per_rank = [ls.get(rec["name"], 0) for ls in spmd_launches]
+        rec["launches"] += sum(per_rank)
+        rec["spmd_launches_per_rank"] = per_rank
     # the engine paths' launches join each kernel's count
     engine_launches = run_engine(torch, flickr, stores, sharded_store, single)
     train_launches = run_train(torch, flickr, adjs["flickr"])
@@ -1441,11 +1451,12 @@ def pair_library(torch, fl, a, h, y, rem, ho, mag):
             lambda: torch.sparse.mm(csr, operand))
 
 
-def run_sharded(torch, flickr, single, params) -> list:
+def run_sharded(torch, flickr, single, params, art) -> tuple:
     """Phases 8-10: sharded serving on full Flickr, SHARDS shards on the
-    one card, executor="host". Returns the records of the fused layer's
-    sharded forms (rows 7e-7h) and the store of the routed GCN "bin"
-    session."""
+    one card, executor="host". Writes the graph and each way's sharded
+    artifact under ``art`` (phase 18 restores them). Returns the records
+    of the fused layer's sharded forms (rows 7e-7h), the store of the
+    routed GCN "bin" session and each way's (pass logits, BN stats)."""
     import tempfile
     from functools import partial
 
@@ -1497,6 +1508,18 @@ def run_sharded(torch, flickr, single, params) -> list:
             sessions[name] = sess
     passes = {name: np.concatenate(sess.run_distributed_pass())
               for name, sess in sessions.items()}
+    t1 = time.perf_counter()
+    np.savez(Path(art) / "graph.npz", name=flickr.name, x=flickr.x,
+             y=flickr.y, edges=flickr.edges, n_classes=flickr.n_classes,
+             train_mask=flickr.train_mask, val_mask=flickr.val_mask,
+             test_mask=flickr.test_mask)
+    for name, sess in sessions.items():
+        sess.save(Path(art) / name.replace("/", "__"))
+    phase8 = {name: (passes[name], [(mu.cpu().numpy(), sd.cpu().numpy())
+                                    for mu, sd in sess.bn])
+              for name, sess in sessions.items()}
+    log(f"sharded artifacts of {len(sessions)} ways and the graph written: "
+        f"{time.perf_counter() - t1:.1f} s")
     # routed serve: the owner groups of 4 batches of 32 seeded seeds, every
     # serve core (and the single-host one) at the node cap
     routed = sessions["gcn_bin/unfused"]
@@ -1831,7 +1854,222 @@ def run_sharded(torch, flickr, single, params) -> list:
                 warmup=1),
         pair_times["gcn_bbf_fbf+halo"]["library_ms"], b))
     log(f"phases 8-10: {time.perf_counter() - t_start:.1f} s")
-    return records, store
+    return records, store, phase8
+
+
+def allreduce_1bit_plain(torch, bitops, grads):
+    """The 1-bit all-reduce of ``grads`` (one a rank) on one process: the
+    mean over ranks of each rank's sign * mean |g|."""
+    n = grads[0].shape[0]
+    rows = [bitops.unpack_pm1(bitops.pack_bits((g >= 0).reshape(1, -1)),
+                              n)[0] * torch.mean(torch.abs(g))
+            for g in grads]
+    return torch.mean(torch.stack(rows), dim=0)
+
+
+def spmd_rank(rank: int, art: str, device: str) -> dict:
+    """One rank of phase 18 (a process of ``run_ranks``): restores every
+    way's phase-8 artifact as an ``executor="spmd"`` session on ``device``
+    and runs its full pass, the launch counts set to 0 just before and
+    read just after; then the timed passes, the host executor over the
+    mesh, distributed BN on both executors and the 1-bit all-reduce.
+    Returns numpy and numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.core import bitops
+    from repro_torch.distributed import collectives
+    from repro_torch.graphs.datasets import GraphData
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_shard_mesh
+    from repro_torch.models import gnn
+    from repro_torch.quant.grad_compress import allreduce_1bit
+    from repro_torch.serve import GraphStore
+    from repro_torch.serve.sharded import ShardedGraphSession
+
+    sync = torch.cuda.synchronize if device.startswith("cuda") \
+        else (lambda: None)
+    t0 = time.perf_counter()
+    root = Path(art)
+    g = np.load(root / "graph.npz")
+    data = GraphData(name=str(g["name"]), x=g["x"], y=g["y"],
+                     edges=g["edges"], n_classes=int(g["n_classes"]),
+                     train_mask=g["train_mask"], val_mask=g["val_mask"],
+                     test_mask=g["test_mask"])
+    store = GraphStore(max_batch=SERVE_BATCH, khop=2, use_pallas=True,
+                       device=device)
+    store.register_graph("flickr", data)
+    f, c = data.x.shape[1], data.n_classes
+    for fam in ("gcn", "sage", "saint"):
+        store.register_model(fam, fam, getattr(gnn, f"init_{fam}")(
+            SEED, f, HIDDEN, c, device))
+
+    def load(name, **kw):
+        sess = ShardedGraphSession.load(
+            root / name.replace("/", "__"), store.graphs["flickr"],
+            store.models[SHARDED_WAYS[name][0]], khop=2,
+            max_batch=SERVE_BATCH, use_pallas=True, device=device, **kw)
+        if sess is None:
+            raise AssertionError(f"phase 18 rank {rank}: the {name} "
+                                 f"artifact did not restore")
+        return sess
+
+    sessions = {name: load(name, executor="spmd") for name in SHARDED_WAYS}
+    setup_s = time.perf_counter() - t0
+    # the main path: every way's full pass (calibration included)
+    t1 = time.perf_counter()
+    collectives.reset_staged()
+    ops.reset_launch_counts()
+    logits = {name: sess.full_logits() for name, sess in sessions.items()}
+    sync()
+    launches = ops.launch_counts()
+    staged = collectives.staged_bytes()
+    main_s = time.perf_counter() - t1
+    out = dict(rank=rank, logits=logits, launches=launches,
+               staged_bytes=staged, setup_s=setup_s, main_s=main_s)
+    out["bn"] = {name: [(mu.cpu().numpy(), sd.cpu().numpy())
+                        for mu, sd in sess.bn]
+                 for name, sess in sessions.items()}
+    out["compiles"] = {name: (sess.executor_compile_count, len(sess.program))
+                       for name, sess in sessions.items()}
+    out["halo"] = {}
+    for name, sess in sessions.items():
+        mp = sess.shard_plan.spmd_plan().mesh_plan
+        out["halo"][name] = (dict(sess.halo_stats.bytes_by_tag), {
+            st.tag: mp.payload_bytes(st.payload_cols, st.payload_itemsize)
+            for st in sess.program if st.kind is not None})
+    # each way's pass ms (host clock, median) and staged bytes a pass
+    out["pass_ms"], out["staged_a_pass"] = {}, {}
+    for name, sess in sessions.items():
+        times = []
+        for _ in range(SPMD_PASSES):
+            t2 = time.perf_counter()
+            sess.run_distributed_pass()
+            sync()
+            times.append((time.perf_counter() - t2) * 1e3)
+        out["pass_ms"][name] = statistics.median(times)
+        collectives.reset_staged()
+        sess.run_distributed_pass()
+        out["staged_a_pass"][name] = collectives.staged_bytes()
+    # the host executor with its exchange over the mesh
+    mesh = make_shard_mesh(SHARDS)
+    host = load("gcn_bin/fused", mesh=mesh)
+    out["mesh_host"] = (host.full_logits(), type(host.layer_executor).__name__,
+                        host.layer_executor.mesh is mesh)
+    # distributed BN, SPMD against the host executor (loopback, this rank)
+    dh = load("sage/fused", bn_mode="distributed")
+    ds = load("sage/fused", executor="spmd", bn_mode="distributed")
+    dbn = []
+    for sess in (dh, ds):
+        dbn_logits = sess.full_logits()          # calibrates, then the pass
+        dbn += [[(m.cpu().numpy(), sd.cpu().numpy()) for m, sd in sess.bn],
+                dbn_logits]
+    out["dbn"] = tuple(dbn)
+    # the 1-bit all-reduce over the world against its plain version
+    grads = [torch.from_numpy(np.random.default_rng(SEED + 100 + r)
+                              .standard_normal(ALLREDUCE_N)
+                              .astype(np.float32)).to(device)
+             for r in range(SHARDS)]
+    got = allreduce_1bit(grads[rank], mesh)
+    want = allreduce_1bit_plain(torch, bitops, grads)
+    out["allreduce"] = (float((got - want).abs().max()),
+                        float(want.abs().max()), bool(torch.equal(got, want)))
+    out["total_s"] = time.perf_counter() - t0
+    return out
+
+
+def run_spmd(torch, art, phase8) -> list:
+    """Phase 18: the SPMD pass on the one card. ``run_ranks`` starts
+    SHARDS gloo ranks on the card; each restores phase 8's artifacts
+    (``spmd_rank``). Rank 0's full logits must equal phase 8's host
+    executor's bit for bit, every rank's rank 0's, the host executor over
+    the mesh too; distributed BN by the reference's rule; halo bytes the
+    schedule's, programs one a step. Returns each rank's kernel
+    launches."""
+    import numpy as np
+    from repro_torch.launch.mesh import run_ranks
+
+    t_start = time.perf_counter()
+    device = f"{DEVICE}:0"
+    ranks = run_ranks(spmd_rank, SHARDS, art, device, backend="gloo",
+                      device=device, timeout_s=SPMD_TIMEOUT_S)
+    wall_s = time.perf_counter() - t_start
+    r0 = ranks[0]
+    for name, (want, want_bn) in phase8.items():
+        got = r0["logits"][name]
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise AssertionError(f"phase 18 {name}: logits {got.shape} not "
+                                 f"finite of shape {want.shape}")
+        if not np.array_equal(got, want):
+            raise AssertionError(
+                f"phase 18 {name}: rank 0's SPMD logits differ from phase "
+                f"8's host executor (max |d| "
+                f"{float(np.abs(got - want).max()):.3e})")
+        if not all(np.array_equal(a, b) for ga, wa in zip(r0["bn"][name],
+                                                           want_bn)
+                   for a, b in zip(ga, wa)):
+            raise AssertionError(f"phase 18 {name}: calibrations differ")
+        for r in ranks:
+            if not np.array_equal(r["logits"][name], got):
+                raise AssertionError(f"phase 18 {name}: rank {r['rank']}'s "
+                                     f"logits differ from rank 0's")
+            compiles, steps = r["compiles"][name]
+            if compiles != steps:
+                raise AssertionError(f"phase 18 {name}: {compiles} programs "
+                                     f"for {steps} steps")
+            seen, sched = r["halo"][name]
+            if seen != sched:
+                raise AssertionError(f"phase 18 {name}: halo bytes {seen}, "
+                                     f"the schedule's {sched}")
+    mesh_logits, kind, same_mesh = r0["mesh_host"]
+    if kind != "HostLayerExecutor" or not same_mesh or not all(
+            np.array_equal(r["mesh_host"][0], mesh_logits) for r in ranks) \
+            or not np.array_equal(mesh_logits, r0["logits"]["gcn_bin/fused"]):
+        raise AssertionError("phase 18: the host executor over the mesh "
+                             "differs from the SPMD pass")
+    dbn_d = 0.0
+    for r in ranks:
+        h_bn, h_logits, s_bn, s_logits = r["dbn"]
+        for (hm, hs), (sm, ss) in zip(h_bn, s_bn):
+            for a, b in ((hm, sm), (hs, ss)):
+                dbn_d = max(dbn_d, float(np.abs(a - b).max()))
+                if not np.allclose(a, b, rtol=1e-5, atol=1e-5):
+                    raise AssertionError("phase 18: distributed BN of the "
+                                         "SPMD and host executors differ")
+        if not np.array_equal(h_logits.argmax(1), s_logits.argmax(1)):
+            raise AssertionError("phase 18: distributed BN predictions of "
+                                 "the SPMD and host executors differ")
+    for r in ranks:
+        err, mag, _ = r["allreduce"]
+        if err > 1e-6 * mag:
+            raise AssertionError(f"phase 18: allreduce_1bit on rank "
+                                 f"{r['rank']} off its plain version by "
+                                 f"{err:.3e}")
+    log("phase 18 SPMD pass, 4 gloo ranks on one card (not a deployment "
+        "figure): " + json.dumps(dict(
+            ways=list(phase8), bit_equal_to_phase_8=True,
+            ranks_equal=True, mesh_host_equal=True,
+            distributed_bn_max_abs_diff=dbn_d,
+            allreduce_1bit=[dict(max_abs_err=r["allreduce"][0],
+                                 bit_equal=r["allreduce"][2])
+                            for r in ranks],
+            halo_bytes_a_pass={n: r0["halo"][n][1] for n in phase8})))
+    log("phase 18 per rank: " + json.dumps([dict(
+        rank=r["rank"], pass_ms=r["pass_ms"],
+        staged_bytes_a_pass=r["staged_a_pass"],
+        staged_bytes_main=r["staged_bytes"], setup_s=r["setup_s"],
+        main_s=r["main_s"], total_s=r["total_s"],
+        launches={k: v for k, v in r["launches"].items() if v})
+        for r in ranks]))
+    log(f"phase 18: {time.perf_counter() - t_start:.1f} s (the world "
+        f"{wall_s:.1f} s)")
+    need = list(FORWARD_KERNELS) + ["fused_layer", "fused_pair"] \
+        + [f"fused_layer/{k}" for k in PAIR_KINDS]
+    for r in ranks:
+        missing = [k for k in need if r["launches"].get(k, 0) == 0]
+        if missing:
+            raise AssertionError(f"phase 18 rank {r['rank']}: kernels never "
+                                 f"launched: {missing}")
+    return [r["launches"] for r in ranks]
 
 
 def run_engine(torch, flickr, stores, sharded_store, single) -> dict:

@@ -16,6 +16,10 @@ numpy has no bfloat16: the reference's ``np.savez`` writes a bf16 leaf as
 a 2-byte void (``|V2``) holding its bits, and so does :meth:`save` here.
 :meth:`Checkpointer.restore` turns such a leaf back into a bf16 tensor
 where the matching leaf of ``like`` is bf16.
+
+``restore(..., shardings=)`` re-places the leaves on a ``DeviceMesh`` (an
+elastic restart on another mesh): each rank reads the saved global array
+and keeps its own shard as a ``DTensor``.
 """
 from __future__ import annotations
 
@@ -156,10 +160,16 @@ class Checkpointer:
             return None
         return int(done[-1].name.split("_")[1])
 
-    def restore(self, step: Optional[int], like: Any) -> Any:
+    def restore(self, step: Optional[int], like: Any,
+                shardings: Any = None) -> Any:
         """Restore into the structure of ``like``; leaves come back as numpy
         arrays with the stored dtypes, and a stored bf16 leaf (a 2-byte
-        void) as a bf16 CPU tensor where ``like``'s leaf is bf16."""
+        void) as a bf16 CPU tensor where ``like``'s leaf is bf16.
+
+        ``shardings``: ``like``'s structure with ``(mesh, placements)``
+        leaves (the placements as ``distributed.sharding.placements``
+        gives them); each leaf then comes back as a ``DTensor`` on that
+        mesh holding this rank's slice of the saved global array."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -171,5 +181,52 @@ class Checkpointer:
         keys, like_leaves, structure = _flatten(like)
         if keys != manifest["keys"]:
             raise ValueError("checkpoint/model structure mismatch")
-        return _unflatten(structure, [_from_host(v, l) for v, l in
-                                      zip(leaves, like_leaves)])
+        leaves = [_from_host(v, l) for v, l in zip(leaves, like_leaves)]
+        if shardings is not None:
+            places = _sharding_leaves(shardings)
+            if len(places) != len(leaves):
+                raise ValueError(f"{len(places)} shardings for "
+                                 f"{len(leaves)} leaves")
+            leaves = [_place(v, *pl) for v, pl in zip(leaves, places)]
+        return _unflatten(structure, leaves)
+
+
+def _sharding_leaves(tree) -> list:
+    """The ``(mesh, placements)`` leaves of a shardings tree, in flatten
+    order."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    out = []
+
+    def walk(node):
+        if node is None:
+            return
+        if isinstance(node, tuple) and len(node) == 2 \
+                and isinstance(node[0], DeviceMesh):
+            out.append(node)
+            return
+        kids = _children(node)
+        if kids is None:
+            raise ValueError(f"a shardings leaf is (mesh, placements), not "
+                             f"{type(node).__name__}")
+        for _, v in kids:
+            walk(v)
+
+    walk(tree)
+    return out
+
+
+def _place(value, mesh, placements):
+    """This rank's slice of the global ``value`` as a DTensor on ``mesh``."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    full = value if isinstance(value, torch.Tensor) \
+        else torch.from_numpy(np.ascontiguousarray(value))
+    shape, offset = compute_local_shape_and_global_offset(
+        full.shape, mesh, placements)
+    local = full[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+    return DTensor.from_local(local.contiguous().to(mesh.device_type), mesh,
+                              placements, run_check=False,
+                              shape=full.shape, stride=full.stride())

@@ -254,6 +254,33 @@ def pad_frdc_uniform(mats, n_rows: int, n_cols: int, n_groups: int) -> list:
     return [pad_frdc(m, n_rows, n_cols, n_groups=n_groups) for m in mats]
 
 
+def stack_frdc(mats) -> dict:
+    """Stack uniformly padded FRDC matrices along a new leading shard axis.
+
+    Returns the field dict (``tiles``/``col_idx``/``group_row``/
+    ``group_first``/``grp_ptr`` + present scale vectors), each ``(P, ...)``:
+    row ``s`` of every field, rebuilt with the shared dims, is shard
+    ``s``'s matrix (the SPMD executor's operands)."""
+    m0 = mats[0]
+    for m in mats[1:]:
+        if (m.n_rows, m.n_cols, m.n_groups) != (m0.n_rows, m0.n_cols,
+                                                m0.n_groups):
+            raise ValueError(
+                f"stack_frdc needs uniformly padded matrices, got "
+                f"({m.n_rows},{m.n_cols},g{m.n_groups}) vs "
+                f"({m0.n_rows},{m0.n_cols},g{m0.n_groups})")
+        for f in ("row_scale", "col_scale"):
+            if (getattr(m, f) is None) != (getattr(m0, f) is None):
+                raise ValueError(f"stack_frdc: {f} present on some shards "
+                                 "but not others")
+    out = {f: torch.stack([getattr(m, f) for m in mats])
+           for f in ("tiles", "col_idx", "group_row", "group_first",
+                     "grp_ptr")}
+    for f in ("row_scale", "col_scale"):
+        if getattr(m0, f) is not None:
+            out[f] = torch.stack([getattr(m, f) for m in mats])
+    return out
+
 def nonzero_coords(m: FRDCMatrix) -> tuple:
     """(rows, cols) of the matrix's ones, decoded from its tiles on the
     host as int64 arrays (a pad group's tiles are 0 and add nothing)."""

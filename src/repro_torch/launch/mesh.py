@@ -12,14 +12,21 @@ collective returns at once and moves nothing), opened only inside its
 the same process sees the group. Nothing here touches a device or a
 process group when the module is imported.
 
-The reference's ``ensure_host_devices`` (more XLA host devices for its SPMD
-shard executor) has no caller in the port yet: the executor over
-``torch.distributed`` is ROADMAP Queue 1 item 3.
+The sharded serving path's SPMD executor runs one process a shard:
+:func:`run_ranks` starts such a world of ranks, each over one device, and
+:func:`make_shard_mesh` lays the 1-D ``("data",)`` mesh over it.
 """
 from __future__ import annotations
 
 import contextlib
 import math
+import os
+import pickle
+import shutil
+import tempfile
+import time
+import traceback
+from pathlib import Path
 
 import torch
 import torch.distributed as dist
@@ -101,3 +108,118 @@ def make_shard_mesh(n_shards: int):
 def dp_axes(mesh: DeviceMesh):
     """The data-parallel mesh axes (includes "pod" when present)."""
     return ("pod", "data") if "pod" in mesh.mesh_dim_names else ("data",)
+
+
+def _rank_main(fn, rank: int, n: int, args: tuple, backend: str,
+               device: str, root: str) -> None:
+    """One rank of :func:`run_ranks`: its result, or its traceback, goes
+    to ``<root>/rank<r>.pkl``; an error exits non-zero."""
+    def error():     # stamped when raised, before the group goes down
+        return ("error", traceback.format_exc(), time.time())
+
+    out = None
+    try:
+        torch.set_num_threads(1)
+        if device.startswith("cuda"):
+            torch.cuda.set_device(torch.device(device))
+        dist.init_process_group(
+            backend, store=dist.FileStore(os.path.join(root, "store"), n),
+            rank=rank, world_size=n)
+        try:
+            out = ("ok", fn(rank, *args))
+        except BaseException:
+            out = error()
+        dist.destroy_process_group()
+    except BaseException:
+        if out is None or out[0] == "ok":    # keep fn's own error
+            out = error()
+    ok = out[0] == "ok"
+    tmp = os.path.join(root, f"rank{rank}.tmp")
+    with open(tmp, "wb") as f:
+        pickle.dump(out, f)
+    os.replace(tmp, os.path.join(root, f"rank{rank}.pkl"))
+    if not ok:
+        os._exit(1)
+
+
+def run_ranks(fn, n: int, *args, backend: str = "gloo",
+              device: str = "cuda", timeout_s: float = 600.0) -> list:
+    """Run ``fn(rank, *args)`` on ``n`` rank processes of one new world
+    and return their results in rank order.
+
+    This is what takes the place of the reference's
+    ``ensure_host_devices``: XLA gives one process ``n`` host devices,
+    torch gives ``n`` processes one device each. The ranks are started with
+    ``spawn`` (``fn`` and ``args`` are pickled, so ``fn`` lives at module
+    level), each with one intra-op thread and ``device`` as its current
+    device, and open the ``backend`` group over a ``dist.FileStore`` in a
+    fresh temporary directory (no port to collide on). On the card the
+    parent builds the kernels first, so the ranks do not compile them at
+    once. A rank that raises, exits non-zero or runs past ``timeout_s``
+    ends them all, and the error names the rank and carries its
+    traceback: no partial result is returned."""
+    import torch.multiprocessing as mp
+
+    if device.startswith("cuda"):
+        from ..kernels import build
+        build.build_all()
+    ctx = mp.get_context("spawn")
+    root = tempfile.mkdtemp(prefix="ranks-")
+    procs = []
+    try:
+        for r in range(n):
+            pr = ctx.Process(target=_rank_main, daemon=True,
+                             args=(fn, r, n, args, backend, device, root))
+            pr.start()
+            procs.append(pr)
+        deadline = time.monotonic() + timeout_s
+        while any(pr.is_alive() for pr in procs) \
+                and _failed(procs) is None and time.monotonic() < deadline:
+            time.sleep(0.05)
+        if _failed(procs) is not None:
+            _raise_first(procs, root)
+        late = [r for r, pr in enumerate(procs) if pr.is_alive()]
+        if late:
+            raise TimeoutError(f"ranks {late} of {n} still running after "
+                               f"{timeout_s} s")
+        results = [_read_rank(root, r) for r in range(n)]
+        missing = [r for r, res in enumerate(results) if res is None]
+        if missing:
+            raise RuntimeError(f"ranks {missing} of {n} exited without a "
+                               f"result")
+        return [res[1] for res in results]
+    finally:
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+            pr.join()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _failed(procs):
+    """The lowest rank that exited non-zero, or None."""
+    return next((r for r, pr in enumerate(procs)
+                 if pr.exitcode not in (None, 0)), None)
+
+
+def _raise_first(procs, root: str) -> None:
+    """Raise for the rank that failed first: of the ranks that exited
+    non-zero, the earliest to record its error (a rank that dies takes
+    the collectives of the others down with it)."""
+    down = [r for r, pr in enumerate(procs) if pr.exitcode not in (None, 0)]
+    res = {r: _read_rank(root, r) for r in down}
+    first = min(down, key=lambda r: res[r][2] if res[r] else float("inf"))
+    tb = f":\n{res[first][1]}" if res[first] else ""
+    others = [r for r in down if r != first]
+    raise RuntimeError(
+        f"rank {first} of {len(procs)} failed (exit code "
+        f"{procs[first].exitcode})"
+        + (f"; ranks {others} failed after it" if others else "") + tb)
+
+
+def _read_rank(root: str, r: int):
+    path = Path(root) / f"rank{r}.pkl"
+    if not path.exists():
+        return None
+    with open(path, "rb") as f:
+        return pickle.load(f)

@@ -101,7 +101,8 @@ def moe_block(params, x: torch.Tensor, cfg: ModelConfig):
     if getattr(cfg, "moe_groups", 0) == -1:
         raise NotImplementedError(
             "moe_groups=-1 (the reference's shard_map MoE) needs a device "
-            "mesh; it comes with the SPMD executor (ROADMAP Q1-3)")
+            "mesh of expert-parallel ranks; it comes with slice G-b "
+            "(ROADMAP Queue 1 item 3)")
     if getattr(cfg, "moe_groups", 0) > 1:
         return _moe_grouped(params, x, cfg)
     b, t, d = x.shape

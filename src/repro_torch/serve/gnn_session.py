@@ -524,19 +524,24 @@ class GraphStore:
 
     def sharded_session(self, graph: str, model: str, n_shards: int,
                         tune: bool = False, tune_repeats: int = 2,
-                        executor: str = "host",
+                        mesh=None, executor: str = "host",
                         bn_mode: str = "single_host"):
         """Compile (or restore) a partitioned session serving ``graph``
         from ``n_shards`` shards on the store's device. ``executor`` and
         ``bn_mode`` select the distributed-pass implementation and the BN
-        calibration source; both are part of the cache key. See
+        calibration source; both are part of the cache key. ``mesh`` (a
+        ``make_shard_mesh`` of the open world) is the halo transport; a
+        cached session asked for a mesh takes it. See
         :mod:`repro_torch.serve.sharded`."""
         from .sharded import ShardedGraphSession, ShardPlanner
         from .sharded.session import check_modes
         check_modes(executor, bn_mode)
         key = (graph, model, int(n_shards), executor, bn_mode)
         if key in self._sharded_sessions:
-            return self._sharded_sessions[key]
+            sess = self._sharded_sessions[key]
+            if mesh is not None:      # the caller asked for this transport
+                sess.set_mesh(mesh)
+            return sess
         g, m = self.graphs[graph], self.models[model]
 
         sess = None
@@ -546,7 +551,7 @@ class GraphStore:
         if sess_dir is not None:
             sess = ShardedGraphSession.load(
                 sess_dir, g, m, khop=self.khop, max_batch=self.max_batch,
-                use_pallas=self.use_pallas, executor=executor,
+                use_pallas=self.use_pallas, mesh=mesh, executor=executor,
                 bn_mode=bn_mode, bspmm_block=blk, fused=self.fused,
                 device=self.device)
         if sess is None:
@@ -562,7 +567,8 @@ class GraphStore:
             sess = ShardedGraphSession(
                 g, m, plan, qparams, shard_plan, khop=self.khop,
                 max_batch=self.max_batch, use_pallas=self.use_pallas,
-                executor=executor, bn_mode=bn_mode, device=self.device)
+                mesh=mesh, executor=executor, bn_mode=bn_mode,
+                device=self.device)
             sess.sync()
             if sess_dir is not None:
                 sess.save(sess_dir)

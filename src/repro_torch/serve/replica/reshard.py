@@ -38,8 +38,9 @@ mode, which the transfer watchdog's strict guard sets, is one setting for
 the whole process (JAX's transfer guard is per thread), and the build
 synchronizes (BN calibration, the logits caches, warmup): the build holds
 :data:`~repro_torch.serve.trace.SYNC_EXCLUSIVE`, which a strict guard also
-takes, so the two never overlap. The sessions run the host layer executor
-on the store's device: the port's store takes no ``mesh=``.
+takes, so the two never overlap. Both sessions get the old engine's
+``mesh``, as in the reference: where P' differs from the mesh's size the
+new session's host executor runs the loopback exchange.
 """
 from __future__ import annotations
 
@@ -112,6 +113,7 @@ class Resharder:
         from_shards = getattr(old_engine, "n_shards", 0)
         old_session = store.sharded_session(
             self.graph, self.model, from_shards,
+            mesh=getattr(old_engine, "mesh", None),
             executor=getattr(old_engine, "executor", "host"),
             bn_mode=getattr(old_engine, "bn_mode", "single_host")) \
             if from_shards >= 1 else None
@@ -143,6 +145,7 @@ class Resharder:
         # engine keeps serving off its own session the whole time)
         new_session = store.sharded_session(
             self.graph, self.model, self.to_shards,
+            mesh=getattr(old_engine, "mesh", None),
             executor=getattr(old_engine, "executor", "host"),
             bn_mode=getattr(old_engine, "bn_mode", "single_host"))
         # 4. routing-cover validation before any traffic moves

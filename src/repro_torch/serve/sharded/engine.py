@@ -33,9 +33,13 @@ per-shard compile counters, and the formation counters
 volume co-batching deduplicated vs a once-per-seed gather; the benchmark
 additionally MEASURES the ``serve/x`` delta vs a strict-FIFO engine).
 
-The sessions run the host layer executor on the store's device; ``mesh``
-(the reference's halo transport over a device mesh) must stay None until
-the multi-card slice ports it.
+``mesh`` (a ``make_shard_mesh`` of the open world) goes to the sessions as
+their halo transport and rides in ``engine_config()``; ``executor="spmd"``
+runs each session's distributed pass with one rank a shard. A pass is a
+collective call: it runs where a session adopts new features (the pick on
+the main thread, ``sync``), so ranks that make the same submissions in
+the same order run their collectives on one thread each, in one order.
+The routed subgraph path is local to each rank.
 """
 from __future__ import annotations
 
@@ -77,12 +81,6 @@ class ShardedServeEngine(GNNServeEngine):
                          retry_backoff_max_s=retry_backoff_max_s)
         if n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {n_shards}")
-        # mesh= mirrors the reference's signature and waits for the halo
-        # transport across cards (ROADMAP Queue 1 item 5); nothing reads it
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= is not ported: the halo transport over cards comes "
-                "with the multi-card slice; leave mesh=None")
         self.n_shards = n_shards
         self.mesh = mesh
         self.executor = executor
@@ -105,6 +103,7 @@ class ShardedServeEngine(GNNServeEngine):
 
     def _get_session(self, key: Tuple[str, ...]):
         return self.store.sharded_session(*key[:2], self.n_shards,
+                                          mesh=self.mesh,
                                           executor=self.executor,
                                           bn_mode=self.bn_mode)
 

@@ -7,12 +7,18 @@
 * :class:`MeshHaloPlan` / :func:`build_mesh_plan` / :func:`ring_perms` —
   the static send/receive schedule of the ring exchange: pure bookkeeping,
   part of the ``routing.json`` sidecar and of ``ShardPlan.spmd_plan()``.
+* :func:`ring_scatter` / :func:`mesh_exchange` — the ring exchange over the
+  ranks of a ``torch.distributed`` group (one rank a shard): for each shift
+  ``d = 1..P-1`` rank ``t`` sends exactly the rows rank ``(t+d) % P`` asked
+  of it (the reference's ``ppermute`` ring), through the group's backend
+  (:mod:`repro_torch.distributed.collectives`: nccl moves device tensors,
+  gloo stages them through pinned host memory). When the payload is
+  bit-packed (GCN "bin" layer 1) the words on the wire are the 32x smaller
+  representation.
 
-The ring transport over devices (the reference's ``ring_scatter`` and
-``mesh_exchange``, ``shard_map``/``ppermute``) comes with the SPMD executor
-(ROADMAP Queue 1 item 5, over ``torch.distributed``). Byte accounting is
-explicit (:class:`HaloStats`): the host executor records the same bytes
-under the same tags as the reference's loopback.
+Byte accounting is explicit (:class:`HaloStats`): the loopback records the
+rows it serves across shards, the ring transports the static schedule's
+``payload_bytes`` once per exchange, as the reference does.
 """
 from __future__ import annotations
 
@@ -20,7 +26,10 @@ import dataclasses
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
+from ...distributed import collectives
 from .routing import RoutingTable
 
 
@@ -153,3 +162,64 @@ def ring_perms(p: int) -> List[List[tuple]]:
     """The P-1 ring-shift permutations of the exchange (shift d sends
     shard t's payload to shard (t+d) % P)."""
     return [[(t, (t + d) % p) for t in range(p)] for d in range(1, p)]
+
+
+def ring_scatter(x_block: torch.Tensor, send_idx, recv_pos, n_buf: int,
+                 group) -> torch.Tensor:
+    """This rank's halo operand from the ring exchange over ``group``.
+
+    ``x_block``: this rank's (n_local_pad, F) operand; ``send_idx`` /
+    ``recv_pos``: this rank's row of each shift's schedule (one (m_d,)
+    index tensor a shift, on ``x_block``'s device). Returns the (n_buf, F)
+    halo operand: rows in ``halo_nodes`` order, padded rows zero, the
+    overflow slot at ``n_buf`` (where schedule padding lands) sliced
+    off."""
+    halo = x_block.new_zeros((n_buf + 1,) + tuple(x_block.shape[1:]))
+    got = collectives.ring_exchange([x_block[s] for s in send_idx], group)
+    for rpos, recv in zip(recv_pos, got):
+        halo[rpos] = recv
+    return halo[:n_buf]
+
+
+def schedule_row(table, r: int, device) -> list:
+    """Rank ``r``'s row of each shift's (P, m_d) schedule array, as index
+    tensors on ``device``."""
+    return [torch.from_numpy(a[r].astype(np.int64)).to(device)
+            for a in table]
+
+
+def mesh_exchange(mesh, blocks, plan: MeshHaloPlan,
+                  stats: Optional[HaloStats] = None,
+                  tag: str = "halo") -> list:
+    """The ring halo exchange over the mesh's ``data`` axis, which must
+    span exactly ``plan.n_shards`` ranks. Every rank passes the P blocks
+    (``blocks[s]``: shard ``s``'s rows, numpy or tensors) and sends the
+    rows of its own; an all-gather of the padded halos then gives every
+    rank the per-shard halo blocks (shard ``s``'s rows of every remote
+    node it references, in ``halo_nodes[s]`` order), as numpy where the
+    blocks were. Packed ``uint32`` words travel as their int32 bits."""
+    group = mesh.get_group("data")
+    p = plan.n_shards
+    if dist.get_world_size(group) != p:
+        raise ValueError(f"mesh_exchange over {dist.get_world_size(group)} "
+                         f"ranks for {p} shards")
+    r = dist.get_rank(group)
+    host = isinstance(blocks[r], np.ndarray)
+    x = blocks[r]
+    dtype = np.dtype(x.dtype) if host else None
+    if host:
+        x = np.ascontiguousarray(x)
+        x = torch.from_numpy(x.view(np.int32) if dtype == np.uint32 else x)
+    dev = x.device
+    halo = ring_scatter(x, schedule_row(plan.send_idx, r, dev),
+                        schedule_row(plan.recv_pos, r, dev), plan.buf_rows,
+                        group)
+    halos = collectives.all_gather(halo, group)
+    if stats is not None:
+        stats.add(tag, plan.payload_bytes(int(x.shape[1]),
+                                          x.element_size()))
+    out = [h[:plan.halo_sizes[s]] for s, h in enumerate(halos)]
+    if host:
+        out = [o.numpy().view(dtype) for o in out]
+    return out
+

@@ -21,10 +21,17 @@ Serving has two paths:
   counts exactly. It fills the per-shard full-logits caches.
 
 The pass runs through a :class:`~repro_torch.serve.session_core.
-LayerExecutor`: ``executor="host"`` is :class:`~.executor.
-HostLayerExecutor`. ``"spmd"`` (one program per layer over P cards, the
-ring exchange inside it) raises :class:`NotImplementedError`: it waits for
-the multi-card slice, ROADMAP Queue 1 item 5.
+LayerExecutor` (``executor=``):
+
+* ``"host"`` is :class:`~.executor.HostLayerExecutor`, the P shards in
+  turn on the session's device; its halo exchange is the loopback, or the
+  ring over ``mesh`` where a mesh of P ranks is attached;
+* ``"spmd"`` is :class:`~.executor.SpmdLayerExecutor`: one rank a shard,
+  every rank of an open process group of at least P ranks running the
+  same program (``launch.mesh.run_ranks`` starts such a world); it builds
+  ``make_shard_mesh(P)`` where no mesh of P ranks is attached, and raises
+  where no such world is open. Each public call is then a collective call:
+  every rank makes it, in the same order, and gets the whole answer.
 
 BN calibration (``bn_mode=``): ``"single_host"`` freezes the stats of one
 full-graph forward through the shared
@@ -49,10 +56,11 @@ import torch
 from ...checkpoint.checkpointer import Checkpointer
 from ...core import frdc
 from ...graphs import sampling
+from ...launch.mesh import make_shard_mesh
 from .. import adapters, session_core
 from ..session_core import ServeCore, SessionPlan
 from . import halo as halo_mod
-from .executor import HostLayerExecutor
+from .executor import HostLayerExecutor, SpmdLayerExecutor
 from .planner import ShardPart, ShardPlan, SpmdPlan
 from .routing import RoutingTable, ShardedCSR
 from .routing import khop_subgraph as routed_khop_subgraph
@@ -62,15 +70,9 @@ BN_MODES = ("single_host", "distributed")
 
 
 def check_modes(executor: str, bn_mode: str) -> None:
-    """Refuse an unknown executor or BN mode, and the SPMD executor, which
-    is not ported."""
+    """Refuse an unknown executor or BN mode."""
     if executor not in EXECUTORS:
         raise ValueError(f"unknown executor {executor!r}; have {EXECUTORS}")
-    if executor == "spmd":
-        raise NotImplementedError(
-            "executor='spmd' is not ported: it needs P cards and the ring "
-            "exchange over torch.distributed (ROADMAP Queue 1 item 5, "
-            "Slice C: SpmdLayerExecutor); use executor='host'")
     if bn_mode not in BN_MODES:
         raise ValueError(f"unknown bn_mode {bn_mode!r}; have {BN_MODES}")
 
@@ -80,7 +82,7 @@ class ShardedGraphSession:
 
     def __init__(self, graph, model, plan: SessionPlan, qparams,
                  shard_plan: ShardPlan, khop: int = 2, max_batch: int = 32,
-                 use_pallas: bool = False, executor: str = "host",
+                 use_pallas: bool = False, mesh=None, executor: str = "host",
                  bn_mode: str = "single_host", device="cuda"):
         if shard_plan.family != plan.family:
             raise ValueError(f"shard plan family {shard_plan.family!r} != "
@@ -95,6 +97,7 @@ class ShardedGraphSession:
         self.khop = khop
         self.max_batch = max_batch
         self.use_pallas = use_pallas
+        self.mesh = mesh
         self.executor = executor
         self.bn_mode = bn_mode
         self.device = torch.device(device)
@@ -159,22 +162,54 @@ class ShardedGraphSession:
             return None
         return [p.dinv for p in self.parts]
 
+    def _use_mesh(self) -> bool:
+        return (self.mesh is not None
+                and "data" in (self.mesh.mesh_dim_names or ())
+                and self.mesh.size(self.mesh.mesh_dim_names.index("data"))
+                == self.n_shards)
+
+    def set_mesh(self, mesh) -> None:
+        """Swap the halo transport (None = host loopback). Numerics do not
+        depend on the transport; the executor is rebuilt on next use."""
+        if mesh is not self.mesh:
+            self.mesh = mesh
+            self._executor_obj = None
+
     # ------------------------------------------------------- executor ------
     @property
     def layer_executor(self) -> session_core.LayerExecutor:
-        """The distributed-pass executor (built on first use)."""
+        """The distributed-pass executor (built on first use; rebuilt after
+        ``set_mesh``). ``executor="spmd"`` builds a shard mesh where no mesh
+        of P ranks is attached, and raises where no world of P ranks is
+        open; it never runs the host executor in its place."""
         if self._executor_obj is None:
-            self._executor_obj = HostLayerExecutor(
-                self.parts, self.shard_plan.spmd_plan(), self.plan,
-                self.halo_stats, self.routing, use_pallas=self.use_pallas,
-                device=self.device)
+            spmd = self.shard_plan.spmd_plan()
+            if self.executor == "spmd":
+                mesh = self.mesh if self._use_mesh() else \
+                    make_shard_mesh(self.n_shards)
+                if mesh is None:
+                    raise RuntimeError(
+                        f"executor='spmd' needs an open process group of "
+                        f"{self.n_shards} ranks, one a shard, each running "
+                        f"this program (launch.mesh.run_ranks starts one)")
+                self.mesh = mesh
+                self._executor_obj = SpmdLayerExecutor(
+                    self.parts, spmd, self.plan, self.halo_stats, mesh,
+                    use_pallas=self.use_pallas, device=self.device)
+            else:
+                self._executor_obj = HostLayerExecutor(
+                    self.parts, spmd, self.plan, self.halo_stats,
+                    self.routing,
+                    mesh=self.mesh if self._use_mesh() else None,
+                    use_pallas=self.use_pallas, device=self.device)
             self._wire_executor_hook()
         return self._executor_obj
 
     def set_trace_hook(self, cb) -> None:
         """Wire ``cb(label, shape_dict)`` to fire on every NEW program of
         any per-shard serve core (``shard<i>/core``) or of the layer
-        executor (``executor/host/stage<i>`` and ``.../operand<i>``).
+        executor (``executor/host/stage<i>`` and ``.../operand<i>``, or
+        ``executor/spmd/step<i>``).
         ``None`` unwires. An executor built later inherits the hook."""
         self._trace_hook = cb
         for i, core in enumerate(self.cores):
@@ -413,12 +448,12 @@ class ShardedGraphSession:
     @classmethod
     def load(cls, directory, graph, model, khop: Optional[int] = None,
              max_batch: Optional[int] = None, use_pallas: bool = False,
-             executor: str = "host", bn_mode: str = "single_host",
+             mesh=None, executor: str = "host", bn_mode: str = "single_host",
              bspmm_block="unchanged", fused="unchanged", device="cuda",
              ) -> Optional["ShardedGraphSession"]:
         """Restore a sharded artifact WITHOUT re-partitioning or re-tuning;
-        returns None on any mismatch so the caller replans. ``executor`` and
-        ``bn_mode`` are runtime choices, not artifact properties; sidecars
+        returns None on any mismatch so the caller replans. ``mesh``,
+        ``executor`` and ``bn_mode`` are runtime choices, not artifact properties; sidecars
         without the ``spmd`` field rebuild it from the restored parts."""
         directory = Path(directory)
         sidecar_path = directory / "routing.json"
@@ -492,4 +527,5 @@ class ShardedGraphSession:
                    session_core.coerce_quant(state["qparams"], device),
                    shard_plan, khop=sidecar["khop"],
                    max_batch=sidecar["max_batch"], use_pallas=use_pallas,
-                   executor=executor, bn_mode=bn_mode, device=device)
+                   mesh=mesh, executor=executor, bn_mode=bn_mode,
+                   device=device)

@@ -76,8 +76,10 @@ class Trainer:
                  shardings: Any = None, device="cuda"):
         if shardings is not None:
             raise NotImplementedError(
-                "restoring under shardings (an elastic re-mesh) needs a "
-                "device mesh; it comes with torch.distributed (ROADMAP Q1-3)")
+                "training under shardings (an elastic re-mesh) needs a train "
+                "step over DTensor parameters; it comes with slice G-b "
+                "(ROADMAP Queue 1 item 3). Checkpointer.restore(shardings=) "
+                "re-places a checkpoint already")
         self.cfg = cfg
         self.tcfg = tcfg
         self.train_step = train_step

@@ -1,4 +1,5 @@
-"""repro_torch FRDC and datasets held against the reference, field by field."""
+"""repro_torch FRDC and datasets held against the reference, field by field
+(constructors, padding, ``stack_frdc``, group coarsening, datasets)."""
 import numpy as np
 import pytest
 
@@ -80,6 +81,41 @@ def test_pad_frdc_and_to_dense_match_reference(kind):
     with pytest.raises(ValueError):
         tf.pad_frdc(t, 8)
 
+
+def test_stack_frdc_matches_reference():
+    """Shard-stacked fields of uniformly padded matrices (with and without
+    scale vectors) equal the reference's; row ``s`` is shard ``s``'s
+    matrix; the two refusals raise ``ValueError`` as the reference's."""
+    rng = np.random.default_rng(11)
+    pairs = []
+    for n in (20, 31, 9):
+        r, c = _edges(rng, n, 0.2)
+        pairs.append((tf.gcn_normalized(r, c, n, device="cpu"),
+                      jf.gcn_normalized(r, c, n),
+                      tf.from_coo(r, c, n, n, device="cpu"),
+                      jf.from_coo(r, c, n, n)))
+    for k in (0, 2):
+        g = max(p[k].n_groups for p in pairs)
+        tm = tf.pad_frdc_uniform([p[k] for p in pairs], 32, 32, g)
+        jm = jf.pad_frdc_uniform([p[k + 1] for p in pairs], 32, 32, g)
+        got, want = tf.stack_frdc(tm), jf.stack_frdc(jm)
+        assert sorted(got) == sorted(want)
+        for f, v in got.items():
+            assert v.shape[0] == len(pairs)
+            np.testing.assert_array_equal(v.numpy(), np.asarray(want[f]),
+                                          err_msg=f)
+            np.testing.assert_array_equal(v[1].numpy(),
+                                          getattr(tm[1], f).numpy())
+    with pytest.raises(ValueError, match="uniformly padded"):
+        tf.stack_frdc([pairs[0][0], pairs[1][0]])
+    with pytest.raises(ValueError, match="uniformly padded"):
+        jf.stack_frdc([pairs[0][1], pairs[1][1]])
+    mixed = tf.pad_frdc_uniform([pairs[0][0], pairs[1][2]], 32, 32, 40)
+    with pytest.raises(ValueError, match="row_scale"):
+        tf.stack_frdc(mixed)
+    with pytest.raises(ValueError, match="row_scale"):
+        jf.stack_frdc(jf.pad_frdc_uniform([pairs[0][1], pairs[1][3]],
+                                          32, 32, 40))
 
 def test_coarsen_and_neighbor_ids_match_reference():
     rng = np.random.default_rng(3)

@@ -22,7 +22,7 @@ def _port_files():
                 "train/train_step.py", "train/trainer.py", "launch/train.py",
                 "launch/serve.py", "env.py", "distributed/sharding.py",
                 "distributed/hlo_analysis.py", "launch/dryrun.py",
-                "launch/mesh.py"):
+                "launch/mesh.py", "distributed/collectives.py"):
         assert (ROOT / "src" / "repro_torch" / rel).is_file(), rel
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
@@ -57,7 +57,11 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.launch.train, repro_torch.launch.serve, "
             "repro_torch.env, repro_torch.distributed.sharding, "
             "repro_torch.distributed.hlo_analysis, "
-            "repro_torch.launch.dryrun, repro_torch.launch.mesh; "
+            "repro_torch.launch.dryrun, repro_torch.launch.mesh, "
+            "repro_torch.distributed.collectives; "
+            "from repro_torch.serve.sharded import SpmdLayerExecutor, "
+            "mesh_exchange, ring_scatter; "
+            "from repro_torch.launch.mesh import run_ranks; "
             "from repro_torch.serve.sharded.planner import validate_reshard; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
@@ -79,7 +83,8 @@ def test_entry_points_default_to_the_card():
             "serve.gnn_session", "serve.sharded.session",
             "serve.sharded.executor", "graphs.partition",
             "serve.replica.router", "serve.token_session",
-            "serve.engine", "models.transformer", "train.trainer")}
+            "serve.engine", "models.transformer", "train.trainer",
+            "launch.mesh")}
     finally:
         sys.path.remove(str(ROOT / "src"))
     entries = [
@@ -88,6 +93,8 @@ def test_entry_points_default_to_the_card():
         mods["serve.sharded.session"].ShardedGraphSession.__init__,
         mods["serve.sharded.session"].ShardedGraphSession.load,
         mods["serve.sharded.executor"].HostLayerExecutor.__init__,
+        mods["serve.sharded.executor"].SpmdLayerExecutor.__init__,
+        mods["launch.mesh"].run_ranks,
         mods["graphs.partition"].partition_rows,
         mods["serve.replica.router"].build_replica,
         mods["serve.token_session"].TokenSession.__init__,

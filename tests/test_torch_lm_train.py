@@ -10,6 +10,9 @@ Tolerances:
   strongly typed 0-d float32: the clip scale, the bias corrections, a
   scheduled ``lr``), values within rtol = 1e-6;
 * ``SyntheticLM`` batches and the loader's stream: bit-equal;
+* ``allreduce_1bit`` and ``Checkpointer.restore(shardings=)`` on a
+  one-rank host mesh: the reference's ``tests/test_distribution.py``
+  cases, the all-reduce within rtol = 1e-6 of the reference's;
 * ``compress_leaf`` / ``compress_tree``: identical sign decisions, values
   within rtol = atol = 1e-6 over 50 steps of error feedback (the scale is
   a mean, summed in another order: a residual near 0 keeps the ulps of
@@ -42,6 +45,8 @@ tgc = lazy("repro_torch.quant.grad_compress")
 tt = lazy("repro_torch.models.transformer")
 tlt = lazy("repro_torch.launch.train")
 tls = lazy("repro_torch.launch.serve")
+tmesh = lazy("repro_torch.launch.mesh")
+tck = lazy("repro_torch.checkpoint.checkpointer")
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -203,8 +208,49 @@ def test_grad_compress_matches_reference():
         acc_t += g
     resid = float(torch.max(torch.abs(acc_c - acc_t)))
     assert resid < 3.0, resid
-    with pytest.raises(NotImplementedError, match="Q1-3"):
+    with pytest.raises(ValueError, match="mesh"):
         tgc.allreduce_1bit(g_true[0], mesh=None)
+
+
+def test_allreduce_1bit_one_rank_mesh():
+    """The reference's ``test_allreduce_1bit_shard_map`` on the port: over
+    a one-rank host mesh the mean of one replica is its own sign * mean
+    |g|, equal to the reference's on the same gradient."""
+    g = np.random.default_rng(1).standard_normal(128).astype(np.float32)
+    with tmesh.make_host_mesh(device="cpu") as mesh:
+        out = tgc.allreduce_1bit(torch.from_numpy(g), mesh, axis="data")
+    scale = float(np.abs(g).mean())
+    np.testing.assert_allclose(out.numpy(), np.where(g >= 0, scale, -scale),
+                               rtol=1e-5)
+    from repro.launch.mesh import make_host_mesh as jmesh
+    want = jgc.allreduce_1bit(jnp.asarray(g), jmesh(), axis="data")
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-6)
+
+
+def test_elastic_restore_resharding(tmp_path):
+    """The reference's ``test_elastic_restore_resharding`` on the port: a
+    checkpoint restored under ``shardings`` of ``(mesh, placements)``
+    comes back as DTensors with those placements and the saved values,
+    and a reference-written checkpoint restores the same way."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro.checkpoint.checkpointer import Checkpointer as JCheckpointer
+    w = np.arange(64.0, dtype=np.float32).reshape(8, 8)
+    tck.Checkpointer(tmp_path / "t").save(1, {"w": torch.from_numpy(w)},
+                                          blocking=True)
+    JCheckpointer(tmp_path / "j").save(1, {"w": jnp.asarray(w)},
+                                       blocking=True)
+    with tmesh.make_host_mesh(device="cpu") as mesh:
+        sh = {"w": (mesh, [Shard(0), Replicate()])}
+        for d in ("t", "j"):
+            got = tck.Checkpointer(tmp_path / d).restore(
+                None, {"w": torch.from_numpy(w)}, shardings=sh)["w"]
+            assert tuple(got.placements) == (Shard(0), Replicate())
+            assert got.device_mesh is mesh
+            np.testing.assert_array_equal(got.full_tensor().numpy(), w)
+            np.testing.assert_array_equal(got.to_local().numpy(), w)
+        with pytest.raises(ValueError, match="shardings"):
+            tck.Checkpointer(tmp_path / "t").restore(
+                None, {"w": torch.from_numpy(w)}, shardings={"w": (mesh,)})
 
 
 @given(st.integers(0, 2**31), st.integers(10, 60))

@@ -18,7 +18,7 @@ scale=0.1)`` at hidden 16, as ``tests/test_sharded_serve.py`` runs it.
   session for the same per-owner micro-batches, with no program added
   after warmup, and after a feature update;
 * artifacts restore across the two packages both ways;
-* ``executor="spmd"`` raises.
+* ``executor="spmd"`` raises outside a world of P ranks.
 """
 import numpy as np
 import pytest
@@ -372,16 +372,25 @@ def test_artifacts_cross_packages(tmp_path, data, family):
 
 
 def test_spmd_executor_raises(data):
-    """The SPMD executor is not ported: asking for it raises, naming the
-    ROADMAP item, and never runs the host executor in its place."""
+    """``executor="spmd"`` outside a world of P ranks raises
+    ``RuntimeError``, naming the ranks it needs and ``run_ranks``, and
+    never runs the host executor in its place; unknown names still raise
+    ``ValueError``. (``tests/test_torch_spmd.py`` runs it in gloo worlds.)"""
     _, tst = _stores("gcn", data)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
+    with pytest.raises(RuntimeError, match="2 ranks.*run_ranks"):
         tst.sharded_session("g", "m", 2, executor="spmd")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsess_mod.check_modes("spmd", "single_host")
+    tsess_mod.check_modes("spmd", "single_host")
     with pytest.raises(ValueError, match="executor"):
         tst.sharded_session("g", "m", 2, executor="mesh")
     with pytest.raises(ValueError, match="bn_mode"):
         tst.sharded_session("g", "m", 2, bn_mode="frozen")
     assert tsess_mod.EXECUTORS == jsh.session.EXECUTORS
     assert not tst._sharded_sessions
+    sess = tsh.ShardedGraphSession(
+        tst.graphs["g"], tst.models["m"], _plan(tsc, "gcn", "bin"),
+        tsc.quantize_family("gcn", tst.models["m"].params),
+        tsh.ShardPlanner(2).plan(tst.graphs["g"].data, "gcn"),
+        max_batch=BATCH, executor="spmd", device="cpu")
+    with pytest.raises(RuntimeError, match="run_ranks"):
+        sess.full_logits()
+    assert sess._executor_obj is None and sess._caches is None

@@ -256,11 +256,15 @@ def test_session_trace_hooks_match_reference(stores):
 
 
 def test_mesh_refused(stores):
-    """A device mesh is refused until the multi-card slice ports its
-    transport; ``mesh=None`` rides in ``engine_config`` as the
-    reference's does."""
+    """A mesh is accepted and rides in ``engine_config`` as the
+    reference's does (``mesh=None`` too); an engine rebuilt from that
+    config holds the same mesh. (The transport itself runs in
+    ``tests/test_torch_spmd.py``.)"""
     _, tst = stores
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tserve.ShardedServeEngine(tst, 2, mesh=object())
+    mesh = object()
+    eng = tserve.ShardedServeEngine(tst, 2, mesh=mesh, executor="spmd")
+    cfg = eng.engine_config()
+    assert cfg["mesh"] is mesh and cfg["executor"] == "spmd"
+    assert tserve.ShardedServeEngine(tst, 2, **cfg).mesh is mesh
     cfg = tserve.ShardedServeEngine(tst, 2).engine_config()
     assert cfg["mesh"] is None and cfg["executor"] == "host"

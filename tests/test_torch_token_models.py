@@ -311,7 +311,8 @@ def test_init_params_and_cache_trees_match_reference():
 
 
 def test_unsupported_options_raise():
-    """What needs a mesh raises, naming where it comes (ROADMAP Q1-3);
+    """What needs a mesh raises, naming where it comes (slice G-b of
+    ROADMAP Queue 1 item 3);
     ``block_remat`` (since LM training) computes the plain forward, and
     the sharding arguments (since the dry run) leave plain tensors as they
     are."""
@@ -324,7 +325,7 @@ def test_unsupported_options_raise():
     assert torch.equal(tt.forward(pt, tcfg, tok, boundary_sharding=[Shard(0)],
                                   logits_sharding=[Replicate()]),
                        tt.forward(pt, tcfg, tok))
-    with pytest.raises(NotImplementedError, match="Q1-3"):
+    with pytest.raises(NotImplementedError, match="slice G-b"):
         tt.forward(pt, dataclasses.replace(tcfg, moe_groups=-1), tok)
     # unroll=False computes what the unrolled forward computes
     assert torch.equal(tt.forward(pt, tcfg, tok, unroll=False),
