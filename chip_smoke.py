@@ -200,6 +200,33 @@ result):
    arguments): the phase fails where an estimate sits more than 15% below
    a measured peak.
 
+19. the LM mesh paths (``run_lm_mesh``) — no GNN kernel runs. Gloo ranks
+   share the one card (NCCL refuses two ranks on one GPU); a probe world
+   first asks whether DTensor's all-gather runs on device tensors over
+   gloo, and the phase prints the placements it ran and why. (a) the
+   expert-parallel MoE (``moe_groups=-1``): ``qwen2-moe-a2.7b`` at full
+   width cut to 2 layers, fp32, B = 2 x 32 tokens, in 2 ranks on a (1, 2)
+   mesh, then 4 ranks on (2, 2); the experts sharded over ``model`` (30 a
+   rank), the rest replicated, the batch over ``data``. Each rank holds its
+   logits against the plain forward on the card (``moe_groups`` 0, or the
+   data size) within 1e-4 of max |logits| with equal argmax, one loss and
+   gradient step (loss within 1e-5 relative; its expert gradients within
+   1e-4 of each leaf's max |g| of the plain gradient's slice), and one
+   all-reduce a MoE layer in the forward; prints ms a forward and a step
+   and the collective bytes a rank. (b) ``Trainer(shardings=)``:
+   ``smollm-135m`` at full width with 16a's recipe in 2 ranks,
+   ``run_with_restarts`` over 8 steps, a checkpoint every 4 and a failure
+   at 4; the restart restores under FSDP placements over (2, 1), or
+   data-parallel ones where the probe refuses the all-gather. Steps 0-3
+   (the fresh start's plain state) bit-equal to 16a's, steps 4-7 within
+   1e-3 relative, every rank's losses equal, every leaf's placements kept
+   by every step, the final checkpoint written by rank 0 alone and, restored
+   in this process, equal to what the ranks gathered (SHA-256 a leaf);
+   prints ms a sharded step, collective bytes a step and peak memory a
+   rank. (c) the A3 dry-run cell: ``run_cell(qwen2-moe-a2.7b, train_4k,
+   single)`` with ``moe_groups`` -1 and 0 at full depth without probes:
+   per-device peak and collective bytes by op, or the error text.
+
 Output: a JSON line with one record per kernel, the card's name and power
 limit from nvidia-smi, and last the line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -309,6 +336,18 @@ SHARDED_WAYS = {"gcn_bin/unfused": ("gcn", "bin", False),
                 "gcn_full/fused": ("gcn", "full", True),
                 "sage/fused": ("sage", "fixed", True),
                 "saint/fused": ("saint", "fixed", True)}
+EP_ARCH = "qwen2-moe-a2.7b"  # phase 19 (a): the expert-parallel MoE
+EP_LAYERS = 2              # phase 19 (a): depth cut, as 16b
+EP_B, EP_T = 2, 32         # phase 19 (a): tokens, 16b's batch
+EP_MESHES = ((1, 2), (2, 2))   # phase 19 (a): (data, model) of each world
+EP_LOGIT_TOL = 1e-4        # phase 19 (a): logits, of max |logits|
+EP_LOSS_TOL = 1e-5         # phase 19 (a): the loss, relative
+EP_GRAD_TOL = 1e-4         # phase 19 (a): expert gradients, of max |g|
+MESH_STEPS = 8             # phase 19 (b): the sharded Trainer's steps
+MESH_CKPT_EVERY = 4        # phase 19 (b): its checkpoint interval
+MESH_FAIL_AT = 4           # phase 19 (b): its injected failure
+MESH_LOSS_TOL = 1e-3       # phase 19 (b): steps 4-7 against 16a, relative
+MESH_TIMEOUT_S = 300       # phase 19: each world's limit
 
 
 def log(msg: str) -> None:
@@ -800,8 +839,9 @@ def run(torch) -> dict:
         rec["launches"] += sum(ls.get(rec["name"], 0) for ls in (
             engine_launches, train_launches, replica_launches))
     run_token(torch)
-    run_lm_train(torch)
+    lm_losses = run_lm_train(torch)
     run_dryrun(torch)
+    run_lm_mesh(torch, lm_losses)
     return {"kernels": records}
 
 
@@ -3146,9 +3186,10 @@ def run_token(torch) -> None:
     log(f"phase 15: {time.perf_counter() - t_start:.1f} s")
 
 
-def run_lm_train(torch) -> None:
+def run_lm_train(torch) -> list:
     """Phase 16: LM training on the card (see the module docstring).
-    Launches none of the GNN kernels; a failed check raises."""
+    Launches none of the GNN kernels; a failed check raises. Returns 16a's
+    losses before its injected failure (phase 19 (b) holds to them)."""
     import dataclasses
     import shutil
     import tempfile
@@ -3415,6 +3456,7 @@ def run_lm_train(torch) -> None:
     del params, res, grads
     torch.cuda.empty_cache()
     log(f"phase 16: {time.perf_counter() - t_start:.1f} s ({card})")
+    return losses[:LM_FAIL_AT]
 
 
 def run_dryrun(torch) -> None:
@@ -3554,6 +3596,430 @@ def run_dryrun(torch) -> None:
                              f"{DRY_UNDER:.0%} below the measured peak: "
                              f"{rows}")
     log(f"phase 17: {time.perf_counter() - t_start:.1f} s ({card})")
+
+
+def gather_probe_rank(rank: int, device: str) -> bool:
+    """Phase 19's probe: DTensor's Shard -> Replicate (an all-gather) of a
+    device tensor over gloo; the world dies if gloo cannot run it."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.launch.mesh import make_host_mesh
+    with make_host_mesh(model=1, device=torch.device(device).type) as mesh:
+        x = torch.full((4, 8), float(rank), device=device)
+        full = DTensor.from_local(x, mesh, [Shard(0), Replicate()]) \
+            .full_tensor()
+        return bool((full[4 * rank:4 * rank + 4] == rank).all())
+
+
+def mesh_config(name: str, device: str):
+    """Phase 19's configuration of ``name``: 15's on the card, the reduced
+    one elsewhere (a CPU rehearsal: the ranks are fresh processes, which
+    no patch of this module reaches)."""
+    if device.startswith("cuda"):
+        return token_config(name)
+    from repro_torch.configs import get_config, reduced_config
+    return reduced_config(get_config(name)).resolve_for_mesh(tp=1)
+
+
+def sync(torch, device: str) -> None:
+    if device.startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def expert_shardings(params, mesh):
+    """Phase 19 (a)'s placements: each MoE block's experts sharded over
+    ``model``, every other leaf replicated (the forward's only collective
+    is then the MoE's all-reduce)."""
+    from repro_torch.distributed import sharding
+
+    def one(path, leaf):
+        parts = path.split("/")
+        expert = len(parts) > 1 and parts[-2] == "moe" \
+            and parts[-1] in ("wi", "wo")
+        spec = ("model",) + (None,) * (leaf.ndim - 1) if expert \
+            else (None,) * leaf.ndim
+        return mesh, sharding.placements(spec, mesh)
+    return sharding._map_with_path(one, params)
+
+
+def place_tree(tree, shardings):
+    """Each leaf of ``tree`` as this rank's DTensor slice under the
+    ``(mesh, placements)`` leaves of ``shardings``."""
+    from repro_torch.checkpoint.checkpointer import (_flatten, _place,
+                                                     _sharding_leaves,
+                                                     _unflatten)
+    return _unflatten(tree, [_place(v, *pl) for v, pl in zip(
+        _flatten(tree)[1], _sharding_leaves(shardings))])
+
+
+def median_host_ms(torch, device, fn, iters: int) -> float:
+    out = []
+    for _ in range(iters):
+        sync(torch, device)
+        t0 = time.perf_counter()
+        fn()
+        sync(torch, device)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def peak_gib(torch, device: str) -> float:
+    return torch.cuda.max_memory_allocated() / 2**30 \
+        if device.startswith("cuda") else float("nan")
+
+
+def ep_rank(rank: int, data: int, model: int, device: str) -> dict:
+    """Phase 19 (a), one rank: the plain forward and gradient step on the
+    card, then the same on the (data, model) mesh with
+    ``moe_groups=-1``; returns the checks and timings of this rank."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.checkpoint.checkpointer import _place
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.hlo_analysis import CollectiveRecorder
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer
+    from repro_torch.train.train_step import make_loss_fn, value_and_grad
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    cfg = dataclasses.replace(mesh_config(EP_ARCH, device),
+                              n_layers=EP_LAYERS, dtype="float32")
+    plain_cfg = dataclasses.replace(cfg, moe_groups=data if data > 1 else 0)
+    mesh_cfg = dataclasses.replace(cfg, moe_groups=-1)
+    gen = torch.Generator(device=device).manual_seed(SEED + 19)
+    params = transformer.init_params(cfg, gen, device)
+    tokens = torch.randint(0, cfg.vocab, (EP_B, EP_T), generator=gen,
+                           device=device, dtype=torch.int32)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    e_loc = (cfg.moe_experts_padded or cfg.moe_experts) // model
+    moe = [i for i, blk in enumerate(params["blocks"]) if "moe" in blk]
+    out = {"rank": rank, "experts_here": e_loc}
+    with make_host_mesh(model=model, device=torch.device(device).type) \
+            as mesh:
+        m, di = mesh.get_local_rank(1), mesh.get_local_rank(0)
+        rows = slice(di * EP_B // data, (di + 1) * EP_B // data)
+        with torch.no_grad():
+            want = transformer.forward(params, plain_cfg, tokens,
+                                       unroll=True)[rows]
+        want_loss, grads = value_and_grad(make_loss_fn(
+            plain_cfg, unroll=True, q_chunk=0))(params, batch)
+        want_g = {(i, w): (grads["blocks"][i]["moe"][w][
+            m * e_loc:(m + 1) * e_loc].clone(),
+            float(grads["blocks"][i]["moe"][w].abs().max()))
+            for i in moe for w in ("wi", "wo")}
+        del grads
+        placed = place_tree(params, expert_shardings(params, mesh))
+        b = sharding.zip_map(lambda v, pl: _place(v, mesh, pl), batch,
+                             sharding.data_shardings(batch, mesh))
+        vg = value_and_grad(make_loss_fn(mesh_cfg, unroll=True, q_chunk=0))
+
+        def forward():
+            return transformer.forward(placed, mesh_cfg, b["tokens"],
+                                       unroll=True)
+
+        def step():
+            loss, g = vg(placed, b)
+            return loss, sharding.match_placements(g, placed)
+        with implicit_replication():
+            with CollectiveRecorder() as rec_f:
+                logits = forward()
+            with CollectiveRecorder() as rec_s:
+                loss, g = step()
+            got = logits.to_local()
+            out["logit_max_abs_err"] = float((got - want).abs().max())
+            out["logit_scale"] = float(want.abs().max())
+            out["argmax_equal"] = bool(torch.equal(got.argmax(-1),
+                                                   want.argmax(-1)))
+            out["loss"] = float(loss.full_tensor())
+            out["want_loss"] = float(want_loss)
+            out["grad_rel_err"] = {
+                f"{i}/{w}": float((g["blocks"][i]["moe"][w].to_local()
+                                   - ref).abs().max()) / scale
+                for (i, w), (ref, scale) in want_g.items()}
+            out["grad_placements_kept"] = sharding.placements_of(g) \
+                == sharding.placements_of(placed)
+            out["forward_ms"] = median_host_ms(torch, device, forward, 3)
+            out["step_ms"] = median_host_ms(torch, device, step, 1)
+    fs, ss = rec_f.stats(), rec_s.stats()
+    out.update(moe_layers=len(moe), forward_collectives=dict(
+        fs.count_by_op), forward_bytes=dict(fs.bytes_by_op),
+        step_collectives=dict(ss.count_by_op), step_bytes=dict(
+            ss.bytes_by_op),
+        peak_gib=peak_gib(torch, device), s=time.perf_counter() - t_start)
+    return out
+
+
+def mesh_train_rank(rank: int, ckpt_dir: str, fsdp: bool,
+                    device: str) -> dict:
+    """Phase 19 (b), one rank: 16a's recipe through ``run_with_restarts``
+    for MESH_STEPS steps, the restart restored under the placements of
+    ``param_shardings(fsdp=fsdp)`` over (2, 1); the restarted loader skips
+    the batches the first run took, so step s sees 16a's batch s."""
+    import contextlib
+    import hashlib
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.data.pipeline import PrefetchLoader, SyntheticLM
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.hlo_analysis import CollectiveRecorder
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer
+    from repro_torch.optim.optimizer import (AdamW, cosine_schedule,
+                                             tree_leaves)
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.trainer import (FailureInjector, Trainer,
+                                           TrainerConfig, run_with_restarts)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = mesh_config(LM_ARCH, device)
+    opt = AdamW(lr=cosine_schedule(LM_LR, 10, LM_STEPS), clip_norm=1.0)
+    step = make_train_step(cfg, opt, unroll=False)
+    rec = dict(losses=[], host_ms=[], kept=[], meshed=[], coll=None,
+               last=None, writes=[])
+    real_savez = checkpointer.np.savez
+
+    def savez(path, **arrays):
+        rec["writes"].append(Path(path).parent.name)
+        return real_savez(path, **arrays)
+    checkpointer.np.savez = savez
+
+    def init_state():
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        params = transformer.init_params(cfg, gen, device)
+        return params, opt.init(params), ()
+
+    def timed(params, opt_state, batch):
+        n = len(rec["losses"])
+        steady = n == MESH_STEPS - 2
+        sync(torch, device)
+        t0 = time.perf_counter()
+        with CollectiveRecorder() if steady else contextlib.nullcontext() \
+                as coll:
+            new = step(params, opt_state, batch)
+        loss = new[2]["loss"]
+        rec["losses"].append(float(loss.full_tensor()
+                                   if hasattr(loss, "full_tensor") else loss))
+        sync(torch, device)
+        rec["host_ms"].append((time.perf_counter() - t0) * 1e3)
+        if steady:
+            rec["coll"] = coll.stats()
+        rec["kept"].append(sharding.placements_of(new[:2])
+                           == sharding.placements_of((params, opt_state)))
+        rec["meshed"].append(any(type(x) is not torch.Tensor
+                                 for x in tree_leaves(new[0])))
+        rec["last"] = new[:2]
+        return new
+
+    loaders = []
+    t_start = time.perf_counter()
+    with make_host_mesh(model=1, device=torch.device(device).type) as mesh:
+        failer = FailureInjector(MESH_FAIL_AT)
+
+        def make():
+            loader = PrefetchLoader(SyntheticLM(cfg.vocab, LM_SEQ), LM_BATCH)
+            loaders.append(loader)
+            if len(loaders) > 1:       # the batches of steps 0-3 again
+                for _ in range(MESH_FAIL_AT):
+                    loader.next_batch()
+            p_sh = sharding.param_shardings(init_state()[0], mesh,
+                                            fsdp=fsdp) \
+                if len(loaders) > 1 else None
+            shardings = None if p_sh is None else (
+                p_sh, sharding.opt_shardings(p_sh, mesh), ())
+            return Trainer(cfg, timed, init_state, loader, ckpt_dir,
+                           TrainerConfig(total_steps=MESH_STEPS,
+                                         ckpt_every=MESH_CKPT_EVERY,
+                                         log_every=MESH_CKPT_EVERY),
+                           failer=failer, shardings=shardings, device=device)
+        try:
+            res = run_with_restarts(make, max_failures=1)
+        finally:
+            for loader in loaders:
+                loader.close()
+            checkpointer.np.savez = real_savez
+        digests = [hashlib.sha256(np.ascontiguousarray(
+            checkpointer._host(x.full_tensor() if hasattr(x, "full_tensor")
+                               else x)).tobytes()).hexdigest()
+            for x in checkpointer._flatten((*rec["last"], ()))[1]]
+        wq = [str(p) for p in sharding.placements_of(
+            rec["last"][0])["blocks"][0]["attn"]["wq"] or []]
+    return dict(rank=rank, losses=rec["losses"], host_ms=rec["host_ms"],
+                kept=rec["kept"], meshed=rec["meshed"],
+                restarts=res["restarts"],
+                steps=res["steps"], writes=rec["writes"], digests=digests,
+                wq_placements=wq, misses=res["straggler_misses"],
+                coll_bytes=dict(rec["coll"].bytes_by_op) if rec["coll"]
+                else {}, coll_count=dict(rec["coll"].count_by_op)
+                if rec["coll"] else {},
+                peak_gib=peak_gib(torch, device),
+                s=time.perf_counter() - t_start)
+
+
+def run_lm_mesh(torch, lm_losses) -> None:
+    """Phase 19: the LM mesh paths on the one card (see the module
+    docstring). Launches none of the GNN kernels; a failed check
+    raises."""
+    import hashlib
+    import shutil
+
+    import numpy as np
+    from repro_torch.checkpoint.checkpointer import Checkpointer, _flatten
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import transformer
+    from repro_torch.optim.optimizer import AdamW
+
+    t_start = time.perf_counter()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    device = f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE
+    # the probe: does DTensor's all-gather run on device tensors over gloo?
+    try:
+        gather_ok = all(run_ranks(gather_probe_rank, 2, device,
+                                  backend="gloo", device=device,
+                                  timeout_s=MESH_TIMEOUT_S))
+        why = "DTensor's all-gather of device tensors runs over gloo"
+    except RuntimeError as e:
+        gather_ok = False
+        why = ("DTensor's Shard -> Replicate (an all-gather) of device "
+               "tensors over gloo took the probe world down ("
+               + str(e).splitlines()[0] + ")")
+    log("phase 19 probe: " + json.dumps(dict(all_gather_ok=gather_ok,
+                                              why=why)))
+
+    # -- 19a. expert-parallel MoE ------------------------------------------
+    ep_rows = {}
+    for data, model in EP_MESHES:
+        ranks = run_ranks(ep_rank, data * model, data, model, device,
+                          backend="gloo", device=device,
+                          timeout_s=MESH_TIMEOUT_S)
+        key = f"({data}, {model})"
+        for r in ranks:
+            where = f"phase 19a {key} rank {r['rank']}"
+            if not (r["logit_max_abs_err"]
+                    <= EP_LOGIT_TOL * r["logit_scale"]
+                    and r["argmax_equal"]):
+                raise AssertionError(
+                    f"{where}: logits off the plain forward by "
+                    f"{r['logit_max_abs_err']:.3e} (scale "
+                    f"{r['logit_scale']:.3e}), argmax equal "
+                    f"{r['argmax_equal']}")
+            if abs(r["loss"] - r["want_loss"]) > EP_LOSS_TOL * abs(
+                    r["want_loss"]):
+                raise AssertionError(f"{where}: loss {r['loss']} vs the "
+                                     f"plain {r['want_loss']}")
+            bad = {k: v for k, v in r["grad_rel_err"].items()
+                   if not v <= EP_GRAD_TOL}
+            if bad or not r["grad_placements_kept"]:
+                raise AssertionError(f"{where}: expert gradients off by "
+                                     f"{bad}, placements kept "
+                                     f"{r['grad_placements_kept']}")
+            if r["forward_collectives"].get("all-reduce") != r["moe_layers"]:
+                raise AssertionError(
+                    f"{where}: forward collectives "
+                    f"{r['forward_collectives']}, want one all-reduce a "
+                    f"MoE layer ({r['moe_layers']})")
+        ep_rows[key] = [{k: r[k] for k in (
+            "rank", "experts_here", "logit_max_abs_err", "logit_scale",
+            "loss", "want_loss", "grad_rel_err", "forward_ms", "step_ms",
+            "forward_collectives", "forward_bytes", "step_collectives",
+            "step_bytes", "peak_gib", "s")} for r in ranks]
+    log(f"phase 19a expert-parallel {EP_ARCH}, {EP_LAYERS} layers at full "
+        f"width, fp32, {EP_B} x {EP_T} tokens, gloo ranks sharing one card "
+        f"(not a deployment figure; {card}): " + json.dumps(ep_rows))
+
+    # -- 19b. Trainer(shardings=) ------------------------------------------
+    t0 = time.perf_counter()
+    kind = "fsdp" if gather_ok else "data-parallel"
+    ckpt_dir = tempfile.mkdtemp(prefix="mesh_ckpt_")
+    try:
+        ranks = run_ranks(mesh_train_rank, 2, ckpt_dir, gather_ok, device,
+                          backend="gloo", device=device,
+                          timeout_s=MESH_TIMEOUT_S)
+        cfg = mesh_config(LM_ARCH, device)
+        like_p = transformer.init_params(cfg, torch.Generator(), "meta")
+        like = (like_p, AdamW().init(like_p), ())
+        restored = _flatten(Checkpointer(ckpt_dir).restore(MESH_STEPS,
+                                                           like))[1]
+        digests = [hashlib.sha256(np.ascontiguousarray(v).tobytes())
+                   .hexdigest() for v in restored]
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    r0 = ranks[0]
+    losses = r0["losses"]
+    want = lm_losses[:MESH_STEPS]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[MESH_FAIL_AT:],
+                                                want[MESH_FAIL_AT:])]
+    steady = [ms for ms in r0["host_ms"][MESH_FAIL_AT + 1:]]
+    log(f"phase 19b Trainer(shardings=), {LM_ARCH} full, 2 gloo ranks on "
+        f"one card (not a deployment figure; {card}): " + json.dumps(dict(
+            placements=kind, why=why, losses=losses, phase_16a=want,
+            steps_0_3_bit_equal=losses[:MESH_FAIL_AT] == want[:MESH_FAIL_AT],
+            steps_4_7_max_rel=max(rel), tol=MESH_LOSS_TOL,
+            wq_placements=r0["wq_placements"],
+            per_rank=[dict(rank=r["rank"], sharded_step_ms=statistics.median(
+                r["host_ms"][MESH_FAIL_AT + 1:]), host_ms=r["host_ms"],
+                collective_bytes_a_step=r["coll_bytes"],
+                collectives_a_step=r["coll_count"], peak_gib=r["peak_gib"],
+                writes=r["writes"], s=r["s"]) for r in ranks],
+            sharded_step_ms_rank0=statistics.median(steady),
+            world_s=time.perf_counter() - t0)))
+    if not (r0["restarts"] == 1 and r0["steps"] == MESH_STEPS - MESH_FAIL_AT
+            and len(losses) == MESH_STEPS):
+        raise AssertionError(f"phase 19b: {r0['restarts']} restarts, "
+                             f"{r0['steps']} resumed steps, {len(losses)} "
+                             f"losses")
+    if losses[:MESH_FAIL_AT] != want[:MESH_FAIL_AT]:
+        raise AssertionError(f"phase 19b: steps 0-3 {losses[:MESH_FAIL_AT]}"
+                             f" differ from 16a's {want[:MESH_FAIL_AT]}")
+    if max(rel) > MESH_LOSS_TOL:
+        raise AssertionError(f"phase 19b: steps 4-7 off 16a's by {rel}")
+    for r in ranks:
+        if r["losses"] != losses or not all(r["kept"]):
+            raise AssertionError(f"phase 19b rank {r['rank']}: losses "
+                                 f"{r['losses']}, placements kept "
+                                 f"{r['kept']}")
+        if r["digests"] != digests:
+            raise AssertionError(f"phase 19b rank {r['rank']}: the final "
+                                 f"checkpoint differs from the state the "
+                                 f"rank gathered")
+    if ranks[1]["writes"] or r0["writes"] != [
+            f"step_{s:08d}" for s in (MESH_CKPT_EVERY, MESH_STEPS,
+                                      MESH_STEPS)]:
+        raise AssertionError("phase 19b: writes " + json.dumps(
+            [r["writes"] for r in ranks]) + ", want rank 0's alone")
+    if kind == "fsdp" and r0["wq_placements"] != ["S(0)", "R"]:
+        raise AssertionError(f"phase 19b: wq placements "
+                             f"{r0['wq_placements']}")
+
+    # -- 19c. the A3 dry-run cell -------------------------------------------
+    cells = {}
+    for groups in (-1, 0):
+        t0 = time.perf_counter()
+        try:
+            res = run_cell(EP_ARCH, "train_4k", "single", probe=False,
+                           cfg_overrides={"moe_groups": groups})
+            cells[groups] = dict(
+                per_device_hbm_bytes=res["memory"]["per_device_hbm_bytes"],
+                collective_bytes_per_device=res[
+                    "collective_bytes_per_device"],
+                collectives_by_op=res["collectives_scanned_program"],
+                s=time.perf_counter() - t0)
+        except Exception as e:       # the outcome is printed, not held
+            cells[groups] = dict(error=f"{type(e).__name__}: {e}"[:800],
+                                 s=time.perf_counter() - t0)
+    log(f"phase 19c {EP_ARCH} train_4k single, moe_groups -1 (A3) and 0, "
+        f"full depth, no probes: " + json.dumps(cells))
+    log(f"phase 19: {time.perf_counter() - t_start:.1f} s ({card})")
 
 
 def main() -> int:

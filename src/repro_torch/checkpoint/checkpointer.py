@@ -20,6 +20,17 @@ where the matching leaf of ``like`` is bf16.
 ``restore(..., shardings=)`` re-places the leaves on a ``DeviceMesh`` (an
 elastic restart on another mesh): each rank reads the saved global array
 and keeps its own shard as a ``DTensor``.
+
+A world of ranks saves one checkpoint: :meth:`Checkpointer.save` gathers
+each ``DTensor`` leaf to its global array (``full_tensor()``, on the
+calling thread, on every rank, in flatten order; the writer thread issues
+no collective), and only rank 0 of the checkpointer's process group
+writes, in the layout above, so a world's checkpoint restores in one
+process and in the reference. The group is the one given, or the default
+group where a saved state holds ``DTensor`` leaves. With a group,
+:meth:`wait` ends with its barrier and :meth:`latest_step` is rank 0's
+answer on every rank. With no group and no ``DTensor`` leaves nothing
+changes: every process writes its own checkpoint.
 """
 from __future__ import annotations
 
@@ -109,16 +120,41 @@ def _from_host(stored: np.ndarray, like_leaf):
         torch.bfloat16)
 
 
+def _is_dtensor(x) -> bool:
+    if type(x) is torch.Tensor or not isinstance(x, torch.Tensor):
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
 class Checkpointer:
-    def __init__(self, directory, keep: int = 3):
+    def __init__(self, directory, keep: int = 3, group=None):
+        """``group``: the process group whose ranks save one checkpoint
+        together (rank 0 writes); None for a checkpointer of its own."""
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
+        self.group = group
         self._thread: Optional[threading.Thread] = None
+
+    def _rank(self) -> int:
+        import torch.distributed as dist
+        return dist.get_rank(self.group)
 
     def save(self, step: int, state: Any, blocking: bool = False) -> None:
         self.wait()
         keys, leaves, _ = _flatten(state)
+        if any(_is_dtensor(x) for x in leaves):
+            if self.group is None:
+                import torch.distributed as dist
+                self.group = dist.group.WORLD
+            # every rank gathers, here, in flatten order
+            leaves = [x.full_tensor() if _is_dtensor(x) else x
+                      for x in leaves]
+        if self.group is not None and self._rank() != 0:
+            if blocking:
+                self.wait()
+            return
         # device -> host copy happens here (a consistent view); the writes
         # happen on the thread
         host_leaves = [_host(x) for x in leaves]
@@ -143,6 +179,9 @@ class Checkpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.group is not None:      # rank 0's files are on disk
+            import torch.distributed as dist
+            dist.barrier(group=self.group)
 
     def _complete(self) -> list:
         return sorted(p for p in self.dir.glob("step_*")
@@ -155,6 +194,16 @@ class Checkpointer:
             old.rmdir()
 
     def latest_step(self) -> Optional[int]:
+        if self.group is not None:      # rank 0's answer on every rank
+            import torch.distributed as dist
+            got = [self._latest() if self._rank() == 0 else None]
+            dist.broadcast_object_list(
+                got, src=dist.get_global_rank(self.group, 0),
+                group=self.group)
+            return got[0]
+        return self._latest()
+
+    def _latest(self) -> Optional[int]:
         done = self._complete()
         if not done:
             return None

@@ -96,6 +96,11 @@ def xnor_dot(a: torch.Tensor, b: torch.Tensor, n_bits) -> torch.Tensor:
     return (int(n_bits) - 2 * pc).to(torch.int32)
 
 
+def and_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """0/1·0/1 dot product: ``popc(a AND b)``."""
+    return popcount(as_u32(a & b)).sum(dim=-1).to(torch.int32)
+
+
 def trinary_dot_s2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Adjacency(0/1)·activation(±1): ``popc(a&b) - popc(a&~b)``."""
     return (popcount(as_u32(a & b)) - popcount(as_u32(a & ~b))
@@ -106,6 +111,29 @@ def trinary_dot_s3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Adjacency(0/1)·activation(±1): ``2*popc(a&b) - popc(a)``."""
     return (2 * popcount(as_u32(a & b)) - popcount(as_u32(a))
             ).sum(dim=-1).to(torch.int32)
+
+
+def trinary_dot_s1(a_bits: torch.Tensor, b_pm1: torch.Tensor) -> torch.Tensor:
+    """The if/else on a's nonzeros, for UNPACKED operands: ``a_bits`` is
+    {0,1}, ``b_pm1`` is ±1 (or full precision); sums the last axis in
+    ``b_pm1``'s dtype (int32 for integers, as the reference's default)."""
+    dt = torch.int32 if not b_pm1.is_floating_point() else b_pm1.dtype
+    return torch.where(a_bits != 0, b_pm1, torch.zeros_like(b_pm1)).sum(
+        dim=-1, dtype=dt)
+
+
+TRINARY_MODES = ("s1_select", "s2_and_andnot", "s3_two_popc")
+
+
+def trinary_dot(a: torch.Tensor, b: torch.Tensor,
+                mode: str = "s3_two_popc") -> torch.Tensor:
+    """The packed trinary dot by ``mode``; ``s1_select`` takes unpacked
+    operands (:func:`trinary_dot_s1`) and is refused here."""
+    if mode == "s2_and_andnot":
+        return trinary_dot_s2(a, b)
+    if mode == "s3_two_popc":
+        return trinary_dot_s3(a, b)
+    raise ValueError(f"packed trinary mode must be s2/s3, got {mode!r}")
 
 
 def bit_transpose_32(words: torch.Tensor) -> torch.Tensor:
@@ -126,3 +154,11 @@ def bmm_xnor_words(a_packed: torch.Tensor, b_packed: torch.Tensor,
     """(M, W) x (N, W) packed ±1 matmul -> (M, N) int32 via XNOR-popc."""
     return xnor_dot(a_packed[:, None, :], b_packed[None, :, :], n_bits)
 
+
+def spmm_trinary_words(adj_packed: torch.Tensor, act_packed: torch.Tensor,
+                       mode: str = "s3_two_popc") -> torch.Tensor:
+    """(M, W) 0/1 adjacency x (F, W) ±1 activations -> (M, F) int32.
+
+    ``act_packed`` holds the activations TRANSPOSED and packed along the
+    node axis (the paper's Step 4 layout)."""
+    return trinary_dot(adj_packed[:, None, :], act_packed[None, :, :], mode)

@@ -83,3 +83,18 @@ def bmm(x: Union[torch.Tensor, BinTensor], wt: Union[torch.Tensor, BinTensor],
     return BinTensor(packed=bin_op(full, axis=-1), scale=scale,
                      n=full.shape[-1])
 
+
+def bmm_reference_fp(x: torch.Tensor, w: torch.Tensor,
+                     variant: str) -> torch.Tensor:
+    """Full-precision oracle of what each variant APPROXIMATES: the
+    operands binarized by the variant's letters with sign and L1 scaling
+    (``x`` by rows, ``w`` by columns), then exact fp math. The output
+    letter is the caller's."""
+    xa, wp, _ = variant
+    if xa == "B":
+        xs = torch.mean(torch.abs(x), dim=-1, keepdim=True)
+        x = torch.where(x >= 0, 1.0, -1.0) * xs
+    if wp == "B":
+        ws = torch.mean(torch.abs(w), dim=0, keepdim=True)
+        w = torch.where(w >= 0, 1.0, -1.0) * ws
+    return x @ w

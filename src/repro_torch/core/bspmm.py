@@ -91,3 +91,8 @@ def bspmm(adj: FRDCMatrix, x: Union[torch.Tensor, BinTensor], variant: str,
     return BinTensor(packed=bin_op(full[:, :n_feat].contiguous(), axis=-1),
                      scale=scale, n=n_feat)
 
+
+def spmm_reference_fp(adj_dense: torch.Tensor,
+                      x: torch.Tensor) -> torch.Tensor:
+    """Dense oracle: ``Adj_eff @ X`` with a decoded dense adjacency."""
+    return adj_dense @ x

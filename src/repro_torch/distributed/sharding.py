@@ -184,8 +184,15 @@ def mesh_einsum(spec: str, *ts):
                 else Replicate() for c in target]
         moved.append(t if list(t.placements) == want
                      else t.redistribute(mesh, want))
+    # each operand's local gradient: sharded as the operand where it has
+    # the letter, a partial sum where a rank sees only its part of the
+    # letter (the operand is replicated, another operand sharded)
+    grads = [[Shard(sub.index(c)) if c is not None and c in sub
+              else Replicate() if c is None else Partial() for c in target]
+             for sub in subs]
     # contiguous, as the global stride says (an einsum may return a view)
-    local = torch.einsum(spec, *[t.to_local() for t in moved]).contiguous()
+    local = torch.einsum(spec, *[t.to_local(grad_placements=g)
+                                 for t, g in zip(moved, grads)]).contiguous()
     shape = torch.Size([size[c] for c in out])
     return DTensor.from_local(local, mesh, out_pl, run_check=False,
                               shape=shape, stride=_contiguous(shape))
@@ -224,7 +231,10 @@ def mesh_embed(table, tokens):
     rows, off = compute_local_shape_and_global_offset(table.shape, mesh,
                                                       t_pl)
     ids = tokens.to_local()
-    local = table.to_local()
+    # a replicated table looked up by sharded tokens: a partial gradient
+    local = table.to_local(grad_placements=[
+        Partial() if tp.is_replicate() and xp.is_shard() else tp
+        for tp, xp in zip(t_pl, x_pl)])
     if any(p.is_shard() and p.dim == 0 for p in t_pl):
         ids = ids - off[0]
         miss = (ids < 0) | (ids >= rows[0])
@@ -281,6 +291,65 @@ def param_placements(params: Any, mesh, fsdp: bool = False) -> Any:
     return _map_with_path(
         lambda path, leaf: placements(param_pspec(path, leaf, fsdp), mesh),
         params)
+
+
+def param_shardings(params: Any, mesh, fsdp: bool = False) -> Any:
+    """The tree of ``params`` with each leaf replaced by ``(mesh, its
+    placements)``: the ``shardings`` form of ``Checkpointer.restore`` and
+    ``Trainer``."""
+    return _map_with_path(
+        lambda path, leaf: (mesh, placements(param_pspec(path, leaf, fsdp),
+                                             mesh)), params)
+
+
+def opt_shardings(p_shardings: Any, mesh) -> Any:
+    """AdamW's state under ``p_shardings`` (the reference's
+    ``_opt_shardings``): the step replicated, the moments as their
+    parameters."""
+    from ..optim.optimizer import AdamWState
+    return AdamWState(step=(mesh, replicated(mesh)), mu=p_shardings,
+                      nu=p_shardings)
+
+
+def zip_map(fn, tree, placements):
+    """``fn(tensor, its placements)`` over ``tree``, whose structure
+    ``placements`` repeats with a placement list at each tensor."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, placements)
+    if isinstance(tree, dict):
+        return {k: zip_map(fn, v, placements[k]) for k, v in tree.items()}
+    items = [zip_map(fn, v, p) for v, p in zip(tree, placements)]
+    return type(tree)(*items) if hasattr(type(tree), "_fields") \
+        else type(tree)(items)
+
+
+def redistribute_tree(tree, placements):
+    """``tree``'s DTensors moved to ``placements``; plain tensors (the
+    replicated step counter of a dry run) as they are."""
+    from torch.distributed.tensor import DTensor
+    return zip_map(lambda t, pl: t.redistribute(t.device_mesh, pl)
+                   if isinstance(t, DTensor)
+                   and list(t.placements) != list(pl) else t,
+                   tree, placements)
+
+
+def placements_of(tree) -> Any:
+    """The placements of each DTensor leaf of ``tree`` (None for a plain
+    tensor), in its structure."""
+    from torch.distributed.tensor import DTensor
+    return _map_with_path(lambda path, t: list(t.placements)
+                          if isinstance(t, DTensor) else None, tree)
+
+
+def match_placements(tree, like):
+    """Each DTensor leaf of ``tree`` redistributed to the placements of
+    the matching leaf of ``like``: the gradient of a parameter comes back
+    in the layout its last op left (a replicated weight used on sharded
+    rows: a partial sum), and an update mixing layouts would let DTensor
+    pick the parameter's next one."""
+    return redistribute_tree(tree, placements_of(like))
 
 
 def batch_pspec(mesh) -> Spec:

@@ -60,7 +60,7 @@ from pathlib import Path
 
 import torch
 
-from ..distributed import hlo_analysis
+from ..distributed import hlo_analysis, sharding
 
 RESULTS = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
 
@@ -162,20 +162,6 @@ def _register_rules() -> None:
         return rules
 
 
-def _zip_map(fn, tree, placements):
-    """``fn(tensor, its placements)`` over ``tree``, whose structure
-    ``placements`` repeats with a placement list at each tensor."""
-    if tree is None:
-        return None
-    if isinstance(tree, torch.Tensor):
-        return fn(tree, placements)
-    if isinstance(tree, dict):
-        return {k: _zip_map(fn, v, placements[k]) for k, v in tree.items()}
-    items = [_zip_map(fn, v, p) for v, p in zip(tree, placements)]
-    return type(tree)(*items) if hasattr(type(tree), "_fields") \
-        else type(tree)(items)
-
-
 def _place(tree, placements, mesh):
     """The meta tensors of ``tree`` as DTensors with ``placements``: each
     a local meta tensor of this rank's shard shape."""
@@ -188,15 +174,7 @@ def _place(tree, placements, mesh):
         local = torch.empty(shape, dtype=t.dtype, device="meta")
         return DTensor.from_local(local, mesh, pl, run_check=False,
                                   shape=t.shape, stride=t.stride())
-    return _zip_map(one, tree, placements)
-
-
-def _redistribute(tree, placements):
-    """``tree``'s DTensors moved to ``placements``; plain tensors (the
-    replicated step counter) as they are."""
-    from torch.distributed.tensor import DTensor
-    return _zip_map(lambda t, pl: t.redistribute(t.device_mesh, pl)
-                    if isinstance(t, DTensor) else t, tree, placements)
+    return sharding.zip_map(one, tree, placements)
 
 
 def _axis(mesh, name: str) -> int:
@@ -212,7 +190,6 @@ def _trace_cell(cfg, shape, mesh, opts, unroll: bool, opt=None) -> dict:
     ``("coll", op, "bytes" | "count")`` for each collective."""
     from torch.distributed.tensor.experimental import implicit_replication
 
-    from ..distributed import sharding
     from ..models import transformer
     from ..optim.optimizer import AdamW, AdamWState
     from ..quant.binary_linear import quantize_params
@@ -244,8 +221,8 @@ def _trace_cell(cfg, shape, mesh, opts, unroll: bool, opt=None) -> dict:
             with trace:
                 logits, new_cache = step(params, cache, tokens,
                                          shape.seq_len - 1)
-                out = (_redistribute(logits, logits_sh),
-                       _redistribute(new_cache, c_pl))
+                out = (sharding.redistribute_tree(logits, logits_sh),
+                       sharding.redistribute_tree(new_cache, c_pl))
         else:
             batch = _place(batch, sharding.data_shardings(batch, mesh), mesh)
         if shape.kind == "prefill":
@@ -254,7 +231,8 @@ def _trace_cell(cfg, shape, mesh, opts, unroll: bool, opt=None) -> dict:
                                         logits_sharding=logits_sh)
             args = trace.storages((params, batch))
             with trace:
-                out = _redistribute(step(params, batch), logits_sh)
+                out = sharding.redistribute_tree(step(params, batch),
+                                                 logits_sh)
         if shape.kind == "train":
             opt = opt or AdamW(lr=1e-4, weight_decay=0.1, clip_norm=1.0)
             opt_state = opt.init(params)
@@ -267,9 +245,9 @@ def _trace_cell(cfg, shape, mesh, opts, unroll: bool, opt=None) -> dict:
             with trace:
                 p2, o2, metrics = step(params, opt_state, batch)
                 rep = sharding.replicated(mesh)
-                out = (_redistribute(p2, p_pl),
-                       _redistribute(o2, AdamWState(rep, p_pl, p_pl)),
-                       _redistribute(metrics, {k: rep for k in metrics}))
+                move = sharding.redistribute_tree
+                out = (move(p2, p_pl), move(o2, AdamWState(rep, p_pl, p_pl)),
+                       move(metrics, {k: rep for k in metrics}))
     outs = {id(_local(t).untyped_storage()):
             _local(t).untyped_storage().nbytes() for t in _tensors(out)}
     colls = trace.stats()

@@ -12,9 +12,11 @@ collective returns at once and moves nothing), opened only inside its
 the same process sees the group. Nothing here touches a device or a
 process group when the module is imported.
 
-The sharded serving path's SPMD executor runs one process a shard:
-:func:`run_ranks` starts such a world of ranks, each over one device, and
-:func:`make_shard_mesh` lays the 1-D ``("data",)`` mesh over it.
+The port's mesh paths run one process a rank: :func:`run_ranks` starts
+such a world, each rank over one device. :func:`make_shard_mesh` lays the
+sharded serving path's 1-D ``("data",)`` mesh over it (the SPMD executor,
+a shard a rank); :func:`make_host_mesh` lays the ("data", "model") mesh
+of the LM paths (the expert-parallel MoE, ``Trainer(shardings=)``).
 """
 from __future__ import annotations
 

@@ -14,6 +14,8 @@ fixed order. Replays are bit-equal.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ..configs.base import ModelConfig
@@ -96,13 +98,12 @@ def _experts(params, xe: torch.Tensor, cfg: ModelConfig, spec_in: str,
 def moe_block(params, x: torch.Tensor, cfg: ModelConfig):
     """x: (B, T, d) -> (B, T, d). Dispatch is GLOBAL by default;
     ``cfg.moe_groups > 1`` switches to per-group dispatch (the reference's
-    per-data-shard form, here on one device); ``cfg.moe_groups == -1``, the
-    reference's shard_map form, needs a device mesh and raises."""
+    per-data-shard form, here on one device); ``cfg.moe_groups == -1`` is
+    the expert-parallel form (:func:`_moe_shard_map`) where the experts
+    are DTensors on a mesh with a ``model`` dim, and the global dispatch
+    elsewhere, as in the reference."""
     if getattr(cfg, "moe_groups", 0) == -1:
-        raise NotImplementedError(
-            "moe_groups=-1 (the reference's shard_map MoE) needs a device "
-            "mesh of expert-parallel ranks; it comes with slice G-b "
-            "(ROADMAP Queue 1 item 3)")
+        return _moe_shard_map(params, x, cfg)
     if getattr(cfg, "moe_groups", 0) > 1:
         return _moe_grouped(params, x, cfg)
     b, t, d = x.shape
@@ -186,3 +187,110 @@ def _moe_grouped(params, x: torch.Tensor, cfg: ModelConfig):
         out = out + _shared_expert(params, x.reshape(n, d), cfg)
     return out.reshape(b, t, d)
 
+
+def _model_mesh(*ts):
+    """The device mesh of the first DTensor among ``ts`` when it has a
+    ``model`` dim, else None (the port's stand-in for the reference's
+    abstract mesh in context)."""
+    if all(type(t) is torch.Tensor for t in ts):
+        return None
+    from torch.distributed.tensor import DTensor
+    for t in ts:
+        if isinstance(t, DTensor):
+            mesh = t.device_mesh
+            return mesh if "model" in (mesh.mesh_dim_names or ()) else None
+    return None
+
+
+def _moe_shard_map(params, x: torch.Tensor, cfg: ModelConfig):
+    """Expert-parallel MoE (the reference's ``_moe_shard_map``, §Perf A3).
+
+    Every rank holds a data shard of the tokens (replicated over the
+    ``model`` dim) and a ``model`` shard of the experts. Each rank routes
+    its own tokens, keeps only the assignments to its own experts (local
+    capacity slots), runs those experts and combines locally; the partial
+    outputs, a ``Partial`` DTensor over ``model``, are summed by ONE
+    (nl, d) all-reduce a layer. The body runs on local tensors; the
+    DTensor boundary carries the gradients (a rank's share of the router
+    and token gradients is a partial sum; its expert gradients are its
+    own shard's). Without a mesh with a ``model`` dim this is the global
+    dispatch, ``moe_groups=0``, as the reference falls back to."""
+    mesh = _model_mesh(params["wi"], x)
+    if mesh is None:
+        return moe_block(params, x, dataclasses.replace(cfg, moe_groups=0))
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    m_dim = mesh.mesh_dim_names.index("model")
+    b, t, d = x.shape
+    e = cfg.moe_experts_padded or cfg.moe_experts
+    k = cfg.moe_top_k
+    tp = mesh.size(m_dim)
+    dp = mesh.size() // tp
+    if e % tp:
+        raise ValueError(f"{e} experts do not split over model = {tp}; "
+                         f"pad them (resolve_for_mesh)")
+    if b % dp:
+        raise ValueError(f"a batch of {b} does not split over the {dp} "
+                         f"data-parallel ranks")
+    e_loc = e // tp
+    e0 = mesh.get_local_rank(m_dim) * e_loc
+
+    def placed(v, pl):
+        if not isinstance(v, DTensor):
+            v = DTensor.from_local(v, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return v if list(v.placements) == pl else v.redistribute(mesh, pl)
+
+    def over_model(on_model, elsewhere):
+        return [on_model if i == m_dim else elsewhere
+                for i in range(mesh.ndim)]
+
+    # the reference's in_specs: tokens P(dp, None), router P(), experts
+    # P("model", ...); a rank's gradient of what it uses but does not own
+    # alone is a partial sum over the dims it is replicated on. The
+    # tokens split by batch rows, the reference's split of B * T rows.
+    rows = over_model(Replicate(), Shard(0))
+    xr = placed(x, rows)
+    # the tokens' gradient is summed over model at this boundary, one
+    # all-reduce in the backward (the transpose of the reference's
+    # replicated in_spec), not left partial for the ops before it
+    xr = DTensor.from_local(xr.to_local(), mesh, rows, run_check=False,
+                            shape=xr.shape, stride=xr.stride())
+    flat = xr.to_local(
+        grad_placements=over_model(Partial(), Shard(0))).reshape(-1, d)
+    router = placed(params["router"], [Replicate()] * mesh.ndim).to_local(
+        grad_placements=[Partial()] * mesh.ndim)
+    local_p = {w: placed(params[w], over_model(Shard(0), Replicate()))
+               .to_local(grad_placements=over_model(Shard(0), Partial()))
+               for w in ("wi", "wo")}
+
+    nl = flat.shape[0]
+    gate_vals, expert_idx = _route(flat, router, cfg, e, k)
+    cap = _capacity(nl, e, k, cfg.capacity_factor)
+    fe = expert_idx.reshape(-1)
+    ft = torch.repeat_interleave(torch.arange(nl, device=flat.device), k)
+    fg = gate_vals.reshape(-1).to(flat.dtype)
+    order, slot, keep = _dispatch(fe, e, cap)
+    se, st, sg = fe[order], ft[order], fg[order]
+    local = keep & (se >= e0) & (se < e0 + e_loc)
+    slot = torch.where(local, slot - e0 * cap,
+                       torch.full_like(slot, e_loc * cap))
+
+    xe = flat.new_zeros((e_loc * cap + 1, d))
+    xe[slot] = flat[st]
+    xe = xe[:-1].reshape(e_loc, cap, d)
+    ye = _experts(local_p, xe, cfg, "ecd,edf->ecf", "ecf,efd->ecd")
+    y_rows = ye.reshape(e_loc * cap, d)[torch.clamp(slot,
+                                                    max=e_loc * cap - 1)]
+    y_rows = y_rows * (sg * local.to(flat.dtype))[:, None]
+    part = _combine(y_rows, order, nl, k).reshape(-1, t, d)
+
+    out = DTensor.from_local(part, mesh, over_model(Partial(), Shard(0)),
+                             run_check=False, shape=x.shape,
+                             stride=(t * d, d, 1))
+    out = out.redistribute(mesh, rows)        # the one all-reduce a layer
+    if not isinstance(x, DTensor):
+        out = out.full_tensor()
+    if "shared_wi" in params:
+        out = out + _shared_expert(params, x, cfg)
+    return out

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, ShapeConfig
 from ..models import transformer
+from ..models.layers import _on_mesh
 from ..optim.optimizer import AdamW, AdamWState, tree_leaves, tree_map
 from ..quant import grad_compress as gc
 
@@ -78,13 +79,34 @@ def value_and_grad(loss_fn: Callable) -> Callable:
         with torch.enable_grad():
             leaves = tree_map(lambda x: x.detach().requires_grad_(True),
                               params)
-            loss = loss_fn(leaves, *args)
+            loss = _replicated(loss_fn(leaves, *args))
             flat = tree_leaves(leaves)
             grads = torch.autograd.grad(loss, flat, allow_unused=True)
         by_leaf = {id(x): torch.zeros_like(x) if g is None else g
                    for x, g in zip(flat, grads)}
         return loss.detach(), tree_map(lambda x: by_leaf[id(x)], leaves)
     return vg
+
+
+def _replicated(loss: torch.Tensor) -> torch.Tensor:
+    """A DTensor loss that is a partial sum (a mean over sharded rows)
+    made replicated: the gradient seed is then 1 on every rank, not a
+    partial 1 a rank."""
+    if type(loss) is torch.Tensor or not any(
+            p.is_partial() for p in getattr(loss, "placements", ())):
+        return loss
+    from torch.distributed.tensor import Replicate
+    return loss.redistribute(loss.device_mesh,
+                             [Replicate()] * loss.device_mesh.ndim)
+
+
+def _as_params(grads, params):
+    """Gradients in their parameters' placements (see
+    ``distributed.sharding.match_placements``); plain trees as they are."""
+    if not _on_mesh(tree_leaves(params)):
+        return grads
+    from ..distributed.sharding import match_placements
+    return match_placements(grads, params)
 
 
 def make_loss_fn(cfg: ModelConfig, unroll: bool, q_chunk: int,
@@ -116,7 +138,10 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, unroll: bool = False,
     ``compress_grads``: 1-bit sign+scale gradient compression with error
     feedback (``quant.grad_compress``), carrying ``err_state``. ``remat``:
     per-block activation checkpointing. The step returns new trees; the
-    caller rebinds them (the reference donates its buffers under jit)."""
+    caller rebinds them (the reference donates its buffers under jit).
+    On DTensor parameters each gradient (and the compressed gradient and
+    its error) is moved to its parameter's placements before the update,
+    so the state keeps its layout from step to step."""
     grad_fn = value_and_grad(make_loss_fn(
         cfg, unroll, q_chunk, block_remat=remat,
         boundary_sharding=boundary_sharding,
@@ -125,13 +150,17 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, unroll: bool = False,
     if not compress_grads:
         def train_step(params, opt_state: AdamWState, batch):
             loss, grads = grad_fn(params, batch)
+            grads = _as_params(grads, params)
             params, opt_state = opt.update(grads, opt_state, params)
             return params, opt_state, {"loss": loss}
         return train_step
 
     def train_step_c(params, opt_state: AdamWState, err_state, batch):
         loss, grads = grad_fn(params, batch)
-        grads, err_state = gc.compress_tree(grads, err_state)
+        grads, err_state = gc.compress_tree(_as_params(grads, params),
+                                            err_state)
+        grads = _as_params(grads, params)
+        err_state = _as_params(err_state, params)
         params, opt_state = opt.update(grads, opt_state, params)
         return params, opt_state, err_state, {"loss": loss}
     return train_step_c

@@ -80,3 +80,68 @@ def test_full_width_words_and_popcount():
     np.testing.assert_array_equal(_u32(tb.bit_transpose_32(_t(w))),
                                   np.asarray(jb.bit_transpose_32(w)))
 
+
+
+@pytest.mark.parametrize("n", [1, 33, 100])
+def test_and_dot(n):
+    """``tests/test_bitops.py::test_and_dot``: popc(a AND b) == a @ b,
+    equal to the reference's."""
+    rng = np.random.default_rng(n)
+    a = rng.integers(0, 2, size=(3, n))
+    b = rng.integers(0, 2, size=(3, n))
+    got = tb.and_dot(tb.pack_bits(torch.from_numpy(a)),
+                     tb.pack_bits(torch.from_numpy(b)))
+    np.testing.assert_array_equal(got.numpy(), (a * b).sum(-1))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jb.and_dot(jb.pack_bits(a), jb.pack_bits(b))))
+    assert got.dtype == torch.int32
+
+
+@pytest.mark.parametrize("n,seed", [(1, 0), (31, 1), (32, 2), (33, 3),
+                                    (200, 4)])
+def test_trinary_dot_all_modes_agree(n, seed):
+    """``tests/test_bitops.py::test_trinary_dot_all_modes_agree``, the s1
+    line included: every mode gives a @ b for 0/1 a and ±1 b, and each
+    equals the reference's."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 2, size=n)
+    b = rng.choice([-1, 1], size=n)
+    expected = int(np.dot(a, b))
+    ap, bp = tb.pack_bits(torch.from_numpy(a)), tb.pack_bits(
+        torch.from_numpy(b > 0))
+    s1 = tb.trinary_dot_s1(torch.from_numpy(a), torch.from_numpy(b))
+    assert int(s1) == expected == int(jb.trinary_dot_s1(jnp.asarray(a),
+                                                        jnp.asarray(b)))
+    assert s1.dtype == torch.int32
+    for mode in tb.TRINARY_MODES[1:]:
+        assert int(tb.trinary_dot(ap, bp, mode)) == expected
+    xf = rng.standard_normal(n).astype(np.float32)
+    np.testing.assert_allclose(
+        tb.trinary_dot_s1(torch.from_numpy(a), torch.from_numpy(xf)).numpy(),
+        np.asarray(jb.trinary_dot_s1(jnp.asarray(a), jnp.asarray(xf))),
+        rtol=1e-6, atol=1e-6)
+
+
+def test_trinary_dot_refuses_s1_and_unknown():
+    """The packed dispatcher takes s2 / s3 only, as the reference's."""
+    assert tb.TRINARY_MODES == jb.TRINARY_MODES
+    a = _t(np.ones((2, 1), np.uint32))
+    for mode in ("s1_select", "s4"):
+        with pytest.raises(ValueError, match="s2/s3"):
+            tb.trinary_dot(a, a, mode)
+        with pytest.raises(ValueError, match="s2/s3"):
+            jb.trinary_dot(np.asarray(a.numpy().view(np.uint32)),
+                           np.asarray(a.numpy().view(np.uint32)), mode)
+
+
+@pytest.mark.parametrize("mode", ["s2_and_andnot", "s3_two_popc"])
+def test_spmm_trinary_words_matches_reference(mode):
+    """(M, W) adjacency words x (F, W) transposed activation words, bit
+    for bit, full-width words in."""
+    rng = np.random.default_rng(7)
+    adj, act = _words(rng, 5, 3), _words(rng, 4, 3)
+    adj[0, 0] = act[1, 2] = 0xFFFFFFFF
+    got = tb.spmm_trinary_words(_t(adj), _t(act), mode)
+    want = np.asarray(jb.spmm_trinary_words(adj, act, mode))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.shape == (5, 4) and got.dtype == torch.int32

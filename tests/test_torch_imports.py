@@ -63,6 +63,13 @@ def test_importing_the_port_loads_no_jax():
             "mesh_exchange, ring_scatter; "
             "from repro_torch.launch.mesh import run_ranks; "
             "from repro_torch.serve.sharded.planner import validate_reshard; "
+            "from repro_torch.models.moe import _moe_shard_map; "
+            "from repro_torch.distributed.sharding import param_shardings, "
+            "opt_shardings, match_placements, redistribute_tree; "
+            "from repro_torch.core.bitops import and_dot, trinary_dot, "
+            "trinary_dot_s1, spmm_trinary_words, TRINARY_MODES; "
+            "from repro_torch.core.bmm import bmm_reference_fp; "
+            "from repro_torch.core.bspmm import spmm_reference_fp; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}

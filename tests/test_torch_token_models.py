@@ -311,8 +311,10 @@ def test_init_params_and_cache_trees_match_reference():
 
 
 def test_unsupported_options_raise():
-    """What needs a mesh raises, naming where it comes (slice G-b of
-    ROADMAP Queue 1 item 3);
+    """The options that act on a mesh leave a one-device forward as it
+    is: ``moe_groups=-1`` without a mesh with a ``model`` dim is the
+    global dispatch (``moe_groups=0``) bit for bit, as in the reference
+    (its expert-parallel form is held in ``tests/test_torch_mesh_train.py``);
     ``block_remat`` (since LM training) computes the plain forward, and
     the sharding arguments (since the dry run) leave plain tensors as they
     are."""
@@ -325,8 +327,16 @@ def test_unsupported_options_raise():
     assert torch.equal(tt.forward(pt, tcfg, tok, boundary_sharding=[Shard(0)],
                                   logits_sharding=[Replicate()]),
                        tt.forward(pt, tcfg, tok))
-    with pytest.raises(NotImplementedError, match="slice G-b"):
-        tt.forward(pt, dataclasses.replace(tcfg, moe_groups=-1), tok)
+    assert torch.equal(
+        tt.forward(pt, dataclasses.replace(tcfg, moe_groups=-1), tok),
+        tt.forward(pt, dataclasses.replace(tcfg, moe_groups=0), tok))
+    pj = jt.init_params(jax.random.PRNGKey(0), cfg)
+    tj = jnp.zeros((1, 4), jnp.int32)
+    np.testing.assert_array_equal(
+        np.asarray(jt.forward(pj, dataclasses.replace(cfg, moe_groups=-1),
+                              tj)),
+        np.asarray(jt.forward(pj, dataclasses.replace(cfg, moe_groups=0),
+                              tj)))
     # unroll=False computes what the unrolled forward computes
     assert torch.equal(tt.forward(pt, tcfg, tok, unroll=False),
                        tt.forward(pt, tcfg, tok))

@@ -135,3 +135,45 @@ def test_abstraction_registry_and_chains_match_reference():
             if name == "ADD.BBF" and a_n != 40:
                 continue
             _assert_out(tabs.op(name).fn(at, xt), jabs.op(name).fn(aj, xj))
+
+
+@pytest.mark.parametrize("variant", ["BBF", "FBF", "BFF"])
+def test_bmm_reference_fp_oracles(variant):
+    """``tests/test_bmm_abstraction.py``'s fp oracles: the port's
+    ``bmm_reference_fp`` equals the reference's within 1e-6 of the
+    output's largest magnitude (the two libraries sum a product's terms
+    in other orders), and the port's packed ``bmm`` agrees with it within
+    the reference tests' 1e-4."""
+    rng = np.random.default_rng(ord(variant[0]) + ord(variant[1]))
+    for m, k, n in ((8, 33, 9), (17, 70, 40), (1, 1, 1)):
+        x = rng.standard_normal((m, k)).astype(np.float32)
+        w = rng.standard_normal((k, n)).astype(np.float32)
+        xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+        ref = tbmm.bmm_reference_fp(xt, wt, variant)
+        want = np.asarray(jbmm.bmm_reference_fp(jnp.asarray(x),
+                                                jnp.asarray(w), variant))
+        assert np.abs(ref.numpy() - want).max() <= 1e-6 * np.abs(want).max()
+        xin = tbmm.quantize_act(xt) if variant[0] == "B" else xt
+        win = tbmm.quantize_weight(wt) if variant[1] == "B" else wt
+        np.testing.assert_allclose(tbmm.bmm(xin, win, variant).numpy(),
+                                   ref.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_spmm_reference_fp_matches_reference():
+    """The dense oracle ``Adj_eff @ X`` against the reference's, and the
+    port's FBF product on a GCN-normalized FRDC matrix against it with
+    the matrix decoded dense."""
+    rng = np.random.default_rng(5)
+    n, f = 37, 12
+    r, c = np.nonzero(rng.random((n, n)) < 0.15)
+    x = rng.standard_normal((n, f)).astype(np.float32)
+    adj_t = tf.gcn_normalized(r, c, n, device="cpu")
+    dense = np.array(jf.to_dense(jf.gcn_normalized(r, c, n)))
+    got = tbsp.spmm_reference_fp(torch.from_numpy(dense), torch.from_numpy(x))
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jbsp.spmm_reference_fp(jnp.asarray(dense),
+                                                      jnp.asarray(x))),
+        rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(tbsp.bspmm(adj_t, torch.from_numpy(x),
+                                          "FBF").numpy(),
+                               got.numpy(), rtol=1e-5, atol=1e-5)
