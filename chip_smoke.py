@@ -224,8 +224,23 @@ result):
    in this process, equal to what the ranks gathered (SHA-256 a leaf);
    prints ms a sharded step, collective bytes a step and peak memory a
    rank. (c) the A3 dry-run cell: ``run_cell(qwen2-moe-a2.7b, train_4k,
-   single)`` with ``moe_groups`` -1 and 0 at full depth without probes:
-   per-device peak and collective bytes by op, or the error text.
+   single)`` with ``moe_groups`` -1 at full depth without probes: per-device
+   peak and collective bytes by op, and a failure fails the run; the same
+   with ``moe_groups`` 0, whose error is printed beside its known reason
+   (torch 2.11's DTensor has no ``aten.index_put_`` strategy).
+20. the example twins (``run_examples``) — first ``ops.launch_stats`` of
+   one GCN "bin" bucket forward of serve ways (a) and (c) (32 seeds, full
+   Flickr): aten ops and kernel entries, per call and per layer, each
+   entry one CUDA launch, fewer ops fused; then every twin of
+   ``examples_torch/`` through its ``main`` on the card (``TWIN_RUNS``):
+   ``quickstart``, ``distributed_gnn_inference`` and ``tune_variants`` at
+   their defaults, ``serve_gnn`` and ``serve_sharded`` at ``--scale 1.0``
+   (P = 4), ``serve_replicated`` at its defaults, ``serve_llm`` fp and
+   ``--quant``, ``train_lm --layers 30 --steps 60 --fail-at 30`` (a
+   checkpoint at 20, one restart). Each twin holds every assert of its
+   JAX example, and any failure fails the run; prints each twin's wall
+   seconds and key figures (QPS, p50, tokens/s, final loss, restarts),
+   and the rows 1-4 kernels must have launched.
 
 Output: a JSON line with one record per kernel, the card's name and power
 limit from nvidia-smi, and last the line
@@ -348,6 +363,20 @@ MESH_CKPT_EVERY = 4        # phase 19 (b): its checkpoint interval
 MESH_FAIL_AT = 4           # phase 19 (b): its injected failure
 MESH_LOSS_TOL = 1e-3       # phase 19 (b): steps 4-7 against 16a, relative
 MESH_TIMEOUT_S = 300       # phase 19: each world's limit
+# phase 20: each example twin's arguments (the sizes of the JAX examples'
+# docstrings; train_lm at full depth, failing once after a checkpoint)
+TWIN_RUNS = (
+    ("quickstart", []),
+    ("distributed_gnn_inference", []),
+    ("tune_variants", []),
+    ("serve_gnn", ["--scale", "1.0"]),
+    ("serve_sharded", ["--scale", "1.0", "--shards", "4"]),
+    ("serve_replicated", []),
+    ("serve_llm", []),
+    ("serve_llm", ["--quant"]),
+    ("train_lm", ["--layers", "30", "--steps", "60", "--fail-at", "30"]),
+)
+STATS_LAYERS = 2           # phase 20: GCN layers of the launch_stats lines
 
 
 def log(msg: str) -> None:
@@ -842,6 +871,9 @@ def run(torch) -> dict:
     lm_losses = run_lm_train(torch)
     run_dryrun(torch)
     run_lm_mesh(torch, lm_losses)
+    twin_launches = run_examples(torch, stores)
+    for rec in records:
+        rec["launches"] += twin_launches.get(rec["name"], 0)
     return {"kernels": records}
 
 
@@ -4002,24 +4034,166 @@ def run_lm_mesh(torch, lm_losses) -> None:
                              f"{r0['wq_placements']}")
 
     # -- 19c. the A3 dry-run cell -------------------------------------------
-    cells = {}
-    for groups in (-1, 0):
+    def cell(groups):
         t0 = time.perf_counter()
-        try:
-            res = run_cell(EP_ARCH, "train_4k", "single", probe=False,
-                           cfg_overrides={"moe_groups": groups})
-            cells[groups] = dict(
-                per_device_hbm_bytes=res["memory"]["per_device_hbm_bytes"],
-                collective_bytes_per_device=res[
-                    "collective_bytes_per_device"],
-                collectives_by_op=res["collectives_scanned_program"],
-                s=time.perf_counter() - t0)
-        except Exception as e:       # the outcome is printed, not held
-            cells[groups] = dict(error=f"{type(e).__name__}: {e}"[:800],
-                                 s=time.perf_counter() - t0)
+        res = run_cell(EP_ARCH, "train_4k", "single", probe=False,
+                       cfg_overrides={"moe_groups": groups})
+        return dict(
+            per_device_hbm_bytes=res["memory"]["per_device_hbm_bytes"],
+            collective_bytes_per_device=res["collective_bytes_per_device"],
+            collectives_by_op=res["collectives_scanned_program"],
+            s=time.perf_counter() - t0)
+
+    cells = {-1: cell(-1)}           # the A3 cell: a failure fails the run
+    t0 = time.perf_counter()
+    try:
+        cells[0] = cell(0)
+    except Exception as e:
+        # the global dispatch scatters with index_put_, for which torch
+        # 2.11's DTensor has no sharding strategy: printed, not held
+        cells[0] = dict(error=f"{type(e).__name__}: {e}"[:800],
+                        known="no aten.index_put_ strategy in DTensor on "
+                              "torch 2.11", s=time.perf_counter() - t0)
+    # the failed cell's checkpointed blocks must leave no saved-tensor
+    # hooks behind (torch before 2.13 does, unless models.transformer's
+    # _remat closes them): a later backward would recompute its block
+    top = torch._C._autograd._top_saved_tensors_default_hooks
+    try:
+        left = top(False)
+    except TypeError:
+        left = top()
+    if left is not None:
+        raise AssertionError("phase 19c: the failed cell left saved-tensor "
+                             "hooks installed")
     log(f"phase 19c {EP_ARCH} train_4k single, moe_groups -1 (A3) and 0, "
         f"full depth, no probes: " + json.dumps(cells))
     log(f"phase 19: {time.perf_counter() - t_start:.1f} s ({card})")
+
+
+def load_twin(name: str):
+    """The example twin ``examples_torch/<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def twin_figures(name: str, out: dict) -> dict:
+    """The key figures of a twin's returned summary."""
+    def lat(snap):
+        return dict(qps=snap["qps"], p50_ms=snap["latency"]["p50_ms"],
+                    p99_ms=snap["latency"]["p99_ms"])
+    if name == "quickstart":
+        return dict(loss=out["loss"], accuracy=out["accuracy"])
+    if name == "distributed_gnn_inference":
+        return dict(max_err=out["max_err"],
+                    packed_payload=out["packed_payload"])
+    if name == "tune_variants":
+        return dict(candidates=out["n_candidates"],
+                    best=out["best"].candidate.name(),
+                    best_ms=out["best"].latency_s * 1e3)
+    if name == "serve_gnn":
+        return dict(plan=out["plan"], subgraph=lat(out["subgraph"]),
+                    pipelined_qps=out["pipelined"]["qps"],
+                    full_cache=lat(out["full_cache"]))
+    if name == "serve_sharded":
+        return dict(routed=lat(out["routed"]),
+                    pipelined_qps=out["pipelined"]["qps"],
+                    halo_bytes_by_tag=out["halo_bytes_by_tag"])
+    if name == "serve_replicated":
+        return {k: out[k] for k in ("steady_qps", "failovers",
+                                    "readmissions", "failover_queries",
+                                    "reshard_prepare_s")}
+    if name == "serve_llm":
+        ttft = sorted(out["ttft_ms"])
+        return dict(tokens_per_s=out["tokens_per_s"],
+                    ttft_ms_p50=ttft[len(ttft) // 2],
+                    param_bytes=out["quant_bytes"] or out["fp_bytes"])
+    if name == "train_lm":
+        return dict(final_loss=out["final_loss"], restarts=out["restarts"],
+                    steps_after_restart=out["steps"],
+                    train_wall_s=out["wall_s"])
+    raise ValueError(name)
+
+
+def run_examples(torch, stores) -> dict:
+    """Phase 20: every example twin's ``main`` on the card (``TWIN_RUNS``),
+    and ``ops.launch_stats`` of the GCN "bin" bucket forward of serve ways
+    (a) and (c). Returns the twins' kernel launches by kernel name."""
+    import contextlib
+    import io
+
+    import numpy as np
+    from repro_torch.kernels import ops
+
+    t_start = time.perf_counter()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    # launch_stats: one bucket forward of phase 6's sessions; on the card
+    # each kernel entry must be one CUDA launch
+    seeds = np.random.default_rng(SEED + 20).integers(
+        0, stores["a"].graphs["flickr"].data.n_nodes, size=SERVE_BATCH)
+    stats = {}
+    for way, fused in (("a", False), ("c", True)):
+        sess = stores[way].session("flickr", "gcn")
+        prepared = sess.prepare_batch(seeds)
+        g = prepared.groups[0]
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        st = ops.launch_stats(g.core._serve_one, g.staged, prepared.bn)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in ops.launch_counts().items()
+                    if k in REPLACES and "/" not in k and v}
+        if st["pallas_calls"] != sum(launched.values()):
+            raise AssertionError(f"phase 20 launch_stats way ({way}): "
+                                 f"{st['pallas_calls']} kernel entries, "
+                                 f"{launched} CUDA launches")
+        stats[f"({way}) {'fused' if fused else 'unfused'}"] = dict(
+            eqns=st["eqns"], pallas_calls=st["pallas_calls"],
+            eqns_per_layer=st["eqns"] / STATS_LAYERS,
+            pallas_calls_per_layer=st["pallas_calls"] / STATS_LAYERS,
+            launches=launched)
+    if not stats["(c) fused"]["eqns"] < stats["(a) unfused"]["eqns"]:
+        raise AssertionError(f"phase 20 launch_stats: {stats}")
+    log("phase 20 launch_stats, GCN \"bin\" bucket forward, full Flickr, "
+        f"{SERVE_BATCH} seeds: " + json.dumps(stats))
+
+    ops.reset_launch_counts()
+    rows = []
+    for name, argv in TWIN_RUNS:
+        mod = load_twin(name)
+        with tempfile.TemporaryDirectory(prefix="twin-") as tmp:
+            if name == "train_lm":
+                argv = argv + ["--ckpt-dir", str(Path(tmp) / "ckpt")]
+            elif name in ("serve_gnn", "serve_sharded"):
+                argv = argv + ["--trace", str(Path(tmp) / "trace.json")]
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    out = mod.main(argv)
+            except BaseException:
+                print(buf.getvalue(), flush=True)
+                raise
+            wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        rows.append(dict(twin=name, argv=argv, wall_s=wall,
+                         **twin_figures(name, out)))
+        log(f"phase 20 {name} {' '.join(argv)}: {wall:.1f} s; "
+            + json.dumps(rows[-1]))
+    launches = {k: v for k, v in ops.launch_counts().items()
+                if k in REPLACES}
+    missing = [k for k in FORWARD_KERNELS if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"phase 20: kernels never launched: {missing}")
+    log("phase 20 launches: " + json.dumps(launches))
+    log(f"phase 20: {time.perf_counter() - t_start:.1f} s for "
+        f"{len(TWIN_RUNS)} twin runs ({card})")
+    return launches
 
 
 def main() -> int:

@@ -162,3 +162,10 @@ def spmm_trinary_words(adj_packed: torch.Tensor, act_packed: torch.Tensor,
     ``act_packed`` holds the activations TRANSPOSED and packed along the
     node axis (the paper's Step 4 layout)."""
     return trinary_dot(adj_packed[:, None, :], act_packed[None, :, :], mode)
+
+
+def packed_memory_bytes(packed: torch.Tensor, n_bits: int) -> int:
+    """Bytes the packed words occupy: 4 a word, as the reference's uint32
+    words (``n_bits`` is unused there too)."""
+    del n_bits
+    return packed.numel() * packed.element_size()

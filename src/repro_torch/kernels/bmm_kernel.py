@@ -22,11 +22,13 @@ from typing import Dict
 import torch
 
 from ..core import bitops
-from . import build
+from . import build, counting
 
 LAUNCHES = {"bmm_xnor": 0}  # CUDA launches (plain-version calls not counted)
+ENTRIES = {"bmm_xnor": 0}   # entries on either device (``counting``)
 
 
+@counting.entry_point(ENTRIES, "bmm_xnor")
 def bmm_xnor_plain(a_packed: torch.Tensor, b_packed: torch.Tensor,
                    n_bits: int, binarize: bool = False) -> torch.Tensor:
     """Plain PyTorch version: XOR-popc one K word at a time into an (M, N)
@@ -49,6 +51,7 @@ def attributes(n: int, wk: int) -> Dict[str, int]:
     return build.attributes("bmm", "bmm_xnor", n, wk)
 
 
+@counting.entry_point(ENTRIES, "bmm_xnor")
 def bmm_xnor_cuda(a_packed: torch.Tensor, b_packed: torch.Tensor,
                   n_bits: int, binarize: bool = False) -> torch.Tensor:
     """Launch the XNOR-popc kernel on CUDA int32 bit-view operands."""

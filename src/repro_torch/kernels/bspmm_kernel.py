@@ -41,12 +41,13 @@ import torch
 from ..core import bitops
 from ..core.frdc import FRDCMatrix, GROUP_COLS, TILE, coarsen_groups, \
     group_neighbor_ids
-from . import build
+from . import build, counting
 
 WORD = 32
 # CUDA launches (plain calls not counted)
 LAUNCHES = {"bspmm_bits": 0, "bspmm_fp": 0, "bspmm_bits_grid": 0,
             "bspmm_fp_grid": 0}
+ENTRIES = dict.fromkeys(LAUNCHES, 0)   # entries on either device (``counting``)
 # groups per chunk of the plain versions: bounds their gathered temporaries
 _CHUNK_ELEMS = 1 << 24
 TRINARY_MODES = ("s2_and_andnot", "s3_two_popc")
@@ -94,6 +95,7 @@ def _fp_terms(adj: FRDCMatrix, xp: torch.Tensor, g) -> torch.Tensor:
     return torch.einsum("gkn,gnf->gkf", mask, xg)
 
 
+@counting.entry_point(ENTRIES, "bspmm_bits")
 def bspmm_bits_plain(adj: FRDCMatrix, x_packed: torch.Tensor, n_feat: int,
                      binarize: bool = True,
                      trinary_mode: str = "s3_two_popc") -> torch.Tensor:
@@ -116,6 +118,7 @@ def bspmm_bits_plain(adj: FRDCMatrix, x_packed: torch.Tensor, n_feat: int,
     return bitops.pack_bits(counts[:, :n_feat] >= 0, axis=-1)
 
 
+@counting.entry_point(ENTRIES, "bspmm_fp")
 def bspmm_fp_plain(adj: FRDCMatrix, x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the fp kernel: gather, (4, 32) mask times
     (32, F) rows per group, ``index_add_`` per tile-row. Raw (no scales);
@@ -240,6 +243,7 @@ def _bits_args(adj: FRDCMatrix, x_packed: torch.Tensor, binarize: bool,
     return x, out
 
 
+@counting.entry_point(ENTRIES, "bspmm_bits")
 def bspmm_bits_cuda(adj: FRDCMatrix, x_packed: torch.Tensor, n_feat: int,
                     binarize: bool = True,
                     trinary_mode: str = "s3_two_popc") -> torch.Tensor:
@@ -276,6 +280,7 @@ def _fp_launch_args(adj: FRDCMatrix, x: torch.Tensor, what: str,
     return (x, out, *_work(adj, f, n_fb, torch.float32, x.device))
 
 
+@counting.entry_point(ENTRIES, "bspmm_fp")
 def bspmm_fp_cuda(adj: FRDCMatrix, x: torch.Tensor) -> torch.Tensor:
     """Launch the fp FRDC kernel on a CUDA float32 (N, F) tensor; raw (no
     scales); returns (R4, F)."""
@@ -399,6 +404,7 @@ def _bits_word_plan(plan: BlockPlan) -> BlockPlan:
 # grids' plain versions are the 1D plain versions, the one reference of all
 # three BSpMM kernels (1D, grid, fused).
 
+@counting.entry_point(ENTRIES, "bspmm_bits_grid")
 def bspmm_bits_grid_plain(adj: FRDCMatrix, x_packed: torch.Tensor,
                           n_feat: int, binarize: bool = True,
                           trinary_mode: str = "s3_two_popc",
@@ -411,6 +417,7 @@ def bspmm_bits_grid_plain(adj: FRDCMatrix, x_packed: torch.Tensor,
     return bspmm_bits_plain(adj, x_packed, n_feat, binarize, trinary_mode)
 
 
+@counting.entry_point(ENTRIES, "bspmm_fp_grid")
 def bspmm_fp_grid_plain(adj: FRDCMatrix, x: torch.Tensor,
                         plan: BlockPlan = BlockPlan(TILE, None)
                         ) -> torch.Tensor:
@@ -421,6 +428,7 @@ def bspmm_fp_grid_plain(adj: FRDCMatrix, x: torch.Tensor,
     return bspmm_fp_plain(adj, x)
 
 
+@counting.entry_point(ENTRIES, "bspmm_bits_grid")
 def bspmm_bits_grid_cuda(adj: FRDCMatrix, x_packed: torch.Tensor,
                          n_feat: int, binarize: bool = True,
                          trinary_mode: str = "s3_two_popc",
@@ -444,6 +452,7 @@ def bspmm_bits_grid_cuda(adj: FRDCMatrix, x_packed: torch.Tensor,
     return out
 
 
+@counting.entry_point(ENTRIES, "bspmm_fp_grid")
 def bspmm_fp_grid_cuda(adj: FRDCMatrix, x: torch.Tensor,
                        plan: BlockPlan = BlockPlan(TILE, None)
                        ) -> torch.Tensor:

@@ -41,7 +41,9 @@ and the ReLU, or the sign (plain: :func:`pair_plain`, on
 
 :data:`KERNEL_CALLS` counts fused layers (``fused``) and the aggregations
 folded into them (``fused_aggs``) on either device, as the reference's
-trace-time counters do; :data:`LAUNCHES` counts CUDA launches.
+trace-time counters do; :data:`LAUNCHES` counts CUDA launches, and
+:data:`ENTRIES` the entries into the two kernels on either device (a
+sharded step is two: its transform and its pair).
 """
 from __future__ import annotations
 
@@ -52,7 +54,7 @@ import torch
 
 from ..core import bitops
 from ..core.frdc import FRDCMatrix, TILE
-from . import bmm_kernel, build, pack_kernel
+from . import bmm_kernel, build, counting, pack_kernel
 from .bspmm_kernel import GROUPS_PER_ITEM, TRINARY_MODES, WORD, _check_adj, \
     bspmm_bits_plain, bspmm_fp_plain, fp_layout, max_items, work_items
 
@@ -68,6 +70,7 @@ PAIR_FORMS = ("gcn_bin_l1+halo", "gcn_bbf_fbf+halo", "branch_add+halo",
               "fc+rcp", "transform")
 LAUNCHES = {"fused_layer": 0, "fused_pair": 0,
             **{f"fused_layer/{k}": 0 for k in PAIR_FORMS}}
+ENTRIES = {"fused_layer": 0, "fused_pair": 0}   # ``counting``
 
 
 def reset_counters() -> None:
@@ -544,10 +547,11 @@ def transform(h: torch.Tensor, bn, w: BinTensor, fbb: bool = False,
     pair (rows, self branch rows) of one launch. The sharded executors
     exchange the rows, so that a remote row is the very row its owner's
     step computes for itself."""
-    if _on_card(h):
-        return _launch(h, bn, w, None, w_s=w_self, fbb=fbb, bn_rcp=bn_rcp,
-                       form="transform")
-    return transform_plain(h, bn, w, fbb, bn_rcp, w_self)
+    with counting.entry(ENTRIES, "fused_layer"):
+        if _on_card(h):
+            return _launch(h, bn, w, None, w_s=w_self, fbb=fbb,
+                           bn_rcp=bn_rcp, form="transform")
+        return transform_plain(h, bn, w, fbb, bn_rcp, w_self)
 
 
 def pair(y: torch.Tensor, ys: Optional[torch.Tensor], rem: torch.Tensor,
@@ -562,10 +566,12 @@ def pair(y: torch.Tensor, ys: Optional[torch.Tensor], rem: torch.Tensor,
     :func:`pair_items` (built here when None). One ``fused_pair`` launch,
     counted under the kind's form (``fused_layer/<kind>+halo``)."""
     KERNEL_CALLS["fused"] += 1
-    if not _on_card(y):
-        return pair_plain(y, ys, rem, intra, halo, relu, n_out, trinary_mode)
-    out = _pair_launch(y, ys, rem, intra, halo, items, relu, n_out,
-                       trinary_mode)
+    with counting.entry(ENTRIES, "fused_pair"):
+        if not _on_card(y):
+            return pair_plain(y, ys, rem, intra, halo, relu, n_out,
+                              trinary_mode)
+        out = _pair_launch(y, ys, rem, intra, halo, items, relu, n_out,
+                           trinary_mode)
     kind = "gcn_bin_l1" if y.dtype == torch.int32 else \
         "gcn_bbf_fbf" if ys is None else "branch_add"
     LAUNCHES["fused_pair"] += 1
@@ -588,10 +594,12 @@ def gcn_bin_l1(x: torch.Tensor, bn, w: BinTensor, adj: FRDCMatrix,
                     adj, halo, pair_items, n_out=w.packed.shape[0],
                     trinary_mode=trinary_mode)
     KERNEL_CALLS["fused"] += 1
-    if _on_card(x):
-        return _launch(x, bn, w, adj, fbb=True, trinary_mode=trinary_mode,
-                       item_ptr=item_ptr, bn_rcp=bn_rcp)
-    return gcn_bin_l1_plain(x, bn, w, adj, trinary_mode, bn_rcp=bn_rcp)
+    with counting.entry(ENTRIES, "fused_layer"):
+        if _on_card(x):
+            return _launch(x, bn, w, adj, fbb=True,
+                           trinary_mode=trinary_mode, item_ptr=item_ptr,
+                           bn_rcp=bn_rcp)
+        return gcn_bin_l1_plain(x, bn, w, adj, trinary_mode, bn_rcp=bn_rcp)
 
 
 def gcn_bbf_fbf(h: torch.Tensor, bn, w: BinTensor, adj: FRDCMatrix,
@@ -607,10 +615,11 @@ def gcn_bbf_fbf(h: torch.Tensor, bn, w: BinTensor, adj: FRDCMatrix,
         return pair(transform(h, bn, w, bn_rcp=bn_rcp), None, rem, adj, halo,
                     pair_items, relu)
     KERNEL_CALLS["fused"] += 1
-    if _on_card(h):
-        return _launch(h, bn, w, adj, relu=relu, item_ptr=item_ptr,
-                       bn_rcp=bn_rcp)
-    return gcn_bbf_fbf_plain(h, bn, w, adj, relu, bn_rcp=bn_rcp)
+    with counting.entry(ENTRIES, "fused_layer"):
+        if _on_card(h):
+            return _launch(h, bn, w, adj, relu=relu, item_ptr=item_ptr,
+                           bn_rcp=bn_rcp)
+        return gcn_bbf_fbf_plain(h, bn, w, adj, relu, bn_rcp=bn_rcp)
 
 
 def branch_add(h: torch.Tensor, bn, w_self: BinTensor, w_agg: BinTensor,
@@ -625,17 +634,20 @@ def branch_add(h: torch.Tensor, bn, w_self: BinTensor, w_agg: BinTensor,
         y, ys = transform(h, bn, w_agg, bn_rcp=bn_rcp, w_self=w_self)
         return pair(y, ys, rem, adj, halo, pair_items, relu)
     KERNEL_CALLS["fused"] += 1
-    if _on_card(h):
-        return _launch(h, bn, w_agg, adj, w_s=w_self, relu=relu,
-                       item_ptr=item_ptr, bn_rcp=bn_rcp)
-    return branch_add_plain(h, bn, w_self, w_agg, adj, relu, bn_rcp=bn_rcp)
+    with counting.entry(ENTRIES, "fused_layer"):
+        if _on_card(h):
+            return _launch(h, bn, w_agg, adj, w_s=w_self, relu=relu,
+                           item_ptr=item_ptr, bn_rcp=bn_rcp)
+        return branch_add_plain(h, bn, w_self, w_agg, adj, relu,
+                                bn_rcp=bn_rcp)
 
 
 def fc(h: torch.Tensor, bn, w: BinTensor, bn_rcp: bool = False
        ) -> torch.Tensor:
     """BN -> quantize_act -> BMM.BBF."""
     KERNEL_CALLS["fused"] += 1
-    if _on_card(h):
-        return _launch(h, bn, w, None, bn_rcp=bn_rcp,
-                       form="fc+rcp" if bn_rcp else None)
-    return fc_plain(h, bn, w, bn_rcp)
+    with counting.entry(ENTRIES, "fused_layer"):
+        if _on_card(h):
+            return _launch(h, bn, w, None, bn_rcp=bn_rcp,
+                           form="fc+rcp" if bn_rcp else None)
+        return fc_plain(h, bn, w, bn_rcp)

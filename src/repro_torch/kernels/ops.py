@@ -5,8 +5,9 @@ For a CUDA tensor each entry point launches its CUDA kernel; for a CPU
 tensor it runs the kernel's plain PyTorch version; any other device raises.
 There is no fallback: a CUDA tensor either reaches the kernel or the launch
 raises. The wrappers also apply what the TPU dispatch applies around the
-kernels (the BSpMM scale order, row crops), and :func:`launch_counts` reads
-the per-kernel CUDA launch counters.
+kernels (the BSpMM scale order, row crops), :func:`launch_counts` reads
+the per-kernel CUDA launch counters and :func:`launch_stats` counts one
+call's ops and kernel entries.
 
 The serving sessions select kernels with :func:`serve_kernels`: a
 ``block_shape`` routes the BSpMM stages to the 2D block grids. The fused
@@ -24,7 +25,7 @@ import functools
 import torch
 
 from ..core.frdc import FRDCMatrix
-from . import bmm_kernel, bspmm_kernel, fused_layer, pack_kernel
+from . import bmm_kernel, bspmm_kernel, counting, fused_layer, pack_kernel
 
 _COUNTERS = (pack_kernel.LAUNCHES, bmm_kernel.LAUNCHES, bspmm_kernel.LAUNCHES,
              fused_layer.LAUNCHES)
@@ -50,6 +51,23 @@ def reset_launch_counts() -> None:
     for c in _COUNTERS:
         for k in c:
             c[k] = 0
+
+
+def launch_stats(fn, *args) -> dict:
+    """Run ``fn(*args)`` once and count its device-operation footprint
+    (reference: ``launch_stats``, which traces ``fn`` to a jaxpr).
+
+    Returns ``dict(eqns=..., pallas_calls=...)`` under the reference's
+    keys. ``pallas_calls`` is the number of entries into the port's
+    hand-written kernels in this thread during the call (``counting``):
+    on the card each is one CUDA launch, on the CPU one call of the
+    kernel's plain version. ``eqns`` is the number of aten ops dispatched
+    outside those entries, plus one for each entry, as the reference
+    counts a ``pallas_call`` as one opaque equation. It is an upper bound
+    on the call's device launches (views and host-side ops count too)."""
+    with counting.Recorder() as rec:
+        fn(*args)
+    return dict(eqns=rec.ops, pallas_calls=rec.calls)
 
 
 def binarize_pack(x: torch.Tensor) -> torch.Tensor:

@@ -12,16 +12,19 @@ from __future__ import annotations
 import torch
 
 from ..core import bitops
-from . import build
+from . import build, counting
 
 LAUNCHES = {"binarize_pack": 0}  # CUDA launches (plain-version calls not counted)
+ENTRIES = {"binarize_pack": 0}   # entries on either device (``counting``)
 
 
+@counting.entry_point(ENTRIES, "binarize_pack")
 def binarize_pack_plain(x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: compare, then shift-and-sum 32-bit lane groups."""
     return bitops.sign_bits(x, axis=-1)
 
 
+@counting.entry_point(ENTRIES, "binarize_pack")
 def binarize_pack_cuda(x: torch.Tensor) -> torch.Tensor:
     """Launch the BIN kernel on a CUDA (M, F) float32/bfloat16 tensor."""
     if not x.is_cuda or x.ndim != 2:

@@ -22,6 +22,7 @@ through numpy: :func:`params_from_numpy` / :func:`params_to_numpy` and
 """
 from __future__ import annotations
 
+import inspect
 from typing import Optional
 
 import numpy as np
@@ -328,14 +329,38 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     for i, bp in enumerate(params["blocks"]):
         ekv = None if enc_kv is None else enc_kv[i]
         if block_remat:
-            x = torch.utils.checkpoint.checkpoint(
-                blockfn, bp, x, pattern[i], ekv, use_reentrant=False)
+            x = _remat(blockfn, bp, x, pattern[i], ekv)
         else:
             x = blockfn(bp, x, pattern[i], ekv)
         x = _constrain(x, boundary_sharding)
     x = rmsnorm(x, params["final_ln"]["scale"])
     return _constrain(lm_head(params["embed"], x, cfg.vocab),
                       logits_sharding)
+
+
+def _remat(fn, *args):
+    """``torch.utils.checkpoint`` without reentrance. When ``fn`` raises,
+    torch before 2.13 leaves the checkpoint's saved-tensor hooks installed
+    until its suspended generator is collected, and every backward in the
+    process meanwhile saves into the failed block and recomputes it (a
+    failed dry-run cell, then any training). Close the generators the
+    failed call left suspended, innermost first, as later torch does."""
+    try:
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    except BaseException as e:
+        gens = []
+        tb = e.__traceback__
+        while tb is not None:
+            frame = tb.tb_frame
+            gen = frame.f_locals.get("gen")
+            if frame.f_code.co_filename == torch.utils.checkpoint.__file__ \
+                    and inspect.isgenerator(gen) and gen.gi_frame is not None:
+                gens.append(gen)
+            tb = tb.tb_next
+        for gen in reversed(gens):
+            gen.close()
+        raise
 
 
 # ---------------------------------------------------------------------------

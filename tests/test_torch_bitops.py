@@ -145,3 +145,13 @@ def test_spmm_trinary_words_matches_reference(mode):
     want = np.asarray(jb.spmm_trinary_words(adj, act, mode))
     np.testing.assert_array_equal(got.numpy(), want)
     assert got.shape == (5, 4) and got.dtype == torch.int32
+
+
+@pytest.mark.parametrize("shape,n_bits", [((5, 3), 70), ((1, 1), 1),
+                                          ((0, 4), 128)])
+def test_packed_memory_bytes_matches_reference(shape, n_bits):
+    """The same words, int32 bit-views against uint32: equal byte counts."""
+    words = _words(np.random.default_rng(3), *shape)
+    got = tb.packed_memory_bytes(_t(words), n_bits)
+    want = int(jb.packed_memory_bytes(jnp.asarray(words), n_bits))
+    assert got == want == 4 * words.size

@@ -1,6 +1,7 @@
-"""The port stands alone: nothing under src/repro_torch/, in chip_smoke.py
-or in the port's GPU tools (tools/*.py) imports JAX or the reference
-package, the port's entry points default to the card, and chip_smoke.py
+"""The port stands alone: nothing under src/repro_torch/, in chip_smoke.py,
+in the port's GPU tools (tools/*.py) or in the example twins
+(examples_torch/*.py, one for each file of examples/) imports JAX or the
+reference package, the port's entry points default to the card, and chip_smoke.py
 refuses to run without a CUDA device or outside a checkout."""
 import ast
 import os
@@ -24,8 +25,12 @@ def _port_files():
                 "distributed/hlo_analysis.py", "launch/dryrun.py",
                 "launch/mesh.py", "distributed/collectives.py"):
         assert (ROOT / "src" / "repro_torch" / rel).is_file(), rel
+    twins = sorted((ROOT / "examples_torch").glob("*.py"))
+    assert [p.name for p in twins] == sorted(
+        p.name for p in (ROOT / "examples").glob("*.py"))
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
+        ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py")) \
+        + twins
 
 
 def _imported(path: Path):

@@ -19,10 +19,13 @@ Tolerances:
   lifts the parameters to float32, so later steps run mostly in float32);
 * ``block_remat=True`` against ``False`` in the port: loss and gradients
   bit-equal (the CPU recomputes each block with the same ops);
+* a block that raises under ``block_remat`` leaves no saved-tensor hooks
+  installed, with torch before 2.13's checkpoint simulated;
 * a reference-written Trainer checkpoint resumed by both packages: losses
   within RESUME_LOSS_TOL.
 """
 import dataclasses
+import importlib
 import shutil
 
 import numpy as np
@@ -205,6 +208,57 @@ def test_block_remat_matches_plain_forward():
                    boundary_sharding=[Shard(0)],
                    logits_sharding=[Replicate()], **kw),
         tt.forward(params, tcfg, batch["tokens"], **kw))
+
+
+# torch before 2.13: a checkpointed forward that raises leaves the
+# checkpoint's generator suspended inside its saved-tensor hooks (2.13
+# throws the error into it). Compiled under torch.utils.checkpoint's file
+# name, as the port's ``_remat`` looks for the generators there.
+_OLD_CHECKPOINT = """
+def checkpoint(function, *args, use_reentrant=None, **kwargs):
+    def frames():
+        with saved_tensors_hooks(lambda t: t, unpack):
+            yield
+    gen = frames()
+    next(gen)
+    ret = function(*args, **kwargs)
+    for _ in gen:
+        pass
+    return ret
+"""
+
+
+def test_failed_remat_block_leaves_no_saved_tensor_hooks(monkeypatch):
+    """A block that raises under ``block_remat``, with a checkpoint that
+    leaves its hooks installed on failure as torch before 2.13 does: the
+    port closes them, so a later backward elsewhere neither saves into nor
+    recomputes the failed block."""
+    recomputed = []
+
+    def unpack(t):
+        recomputed.append(t)
+        return t
+    scope = {"saved_tensors_hooks": torch.autograd.graph.saved_tensors_hooks,
+             "unpack": unpack}
+    exec(compile(_OLD_CHECKPOINT, torch.utils.checkpoint.__file__, "exec"),
+         scope)
+    monkeypatch.setattr(torch.utils.checkpoint, "checkpoint",
+                        scope["checkpoint"])
+
+    def boom(*a, **k):
+        raise RuntimeError("block failed")
+    monkeypatch.setattr(importlib.import_module(
+        "repro_torch.models.transformer"), "_apply_block", boom)
+    _, tcfg = _cfgs("smollm-135m")
+    params = _port(jt.init_params(jax.random.PRNGKey(0), _cfgs(
+        "smollm-135m")[0]))
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="block failed") as failed:
+        tt.forward(params, tcfg, tokens, block_remat=True)
+    w = torch.ones(3, requires_grad=True)
+    assert torch.equal(torch.autograd.grad((w * w).sum(), w)[0], 2 * w)
+    assert not recomputed
+    del failed
 
 
 def test_quantized_params_refused_by_both():
