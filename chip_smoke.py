@@ -43,7 +43,8 @@ result):
    kernel against their plain versions on the card at the serve bucket's
    shapes (and the fused layer kinds also against the unfused layer
    composition on the CPU), at the edge cases, and against a second run
-   (bit-equal);
+   (bit-equal); fc, its own launch (``fused_fc``), also bit-exact against
+   its mirror ``fc_rows_plain``;
 6. serving — ``GraphStore(max_batch=32, khop=2, use_pallas=True)`` on full
    Flickr at hidden 64: GCN "bin" three ways, (a) the 1D kernels, (b)
    ``bspmm_block=(32, 32)``, (c) ``fused=True``, each warmed up and then
@@ -57,7 +58,8 @@ result):
 7. serve times — the grid and fused kernels at the bucket (the bits grid
    also at a full-width block and on device time, beside the
    ``torch.sparse.mm`` yardstick; the fused
-   layer also per kind, whole and transform-only, beside its yardstick:
+   layer also per kind, whole and transform-only (fc, one launch with no
+   aggregation, whole only), beside its yardstick:
    fp32 ``torch.matmul(z, w_eff)`` for ``gcn_bin_l1``, a bf16
    ``torch.matmul`` for the BBF kinds, and its bound), their registers,
    shared memory and occupancy, per-batch
@@ -84,7 +86,9 @@ result):
    the routed batch's p50 / p90 and extract split, and each sharded form
    of the fused layer (rows 7e-7h) at shard 0's padded shapes against its
    plain version (sign words bit-exact, fp within FP_TOL of the sum of
-   |terms|), with its bound, on events and device time; the pair kernel
+   |terms|; fc also bit-exact against its mirror), with its bound, on
+   events and device time (fc beside a bf16 matmul yardstick); the pair
+   kernel
    (``fused_pair``) alone on each pair form's transform against its plain
    version, each form's step (transform + pair) and pair times, the
    pair's bound, registers and occupancy, and one ``torch.sparse.mm`` of
@@ -890,11 +894,12 @@ def log_attributes(torch, build, bspmm_kernel, cases) -> None:
 
 
 class transform_only:
-    """While active, every fused layer launch runs with ``aggregate = 0``,
-    so the kernel returns after its transform phase: the wrapper builds its
-    parameters as always, and only the flag in the struct it passes
-    changes. Without aggregation the transform writes its products (the
-    self branch's too) without the column scale."""
+    """While active, every launch of the cooperative fused layer kernel
+    runs with ``aggregate = 0``, so the kernel returns after its transform
+    phase: the wrapper builds its parameters as always, and only the flag
+    in the struct it passes changes. Without aggregation the transform
+    writes its products (the self branch's too) without the column scale.
+    fc's own launch (``fused_fc``) is not patched."""
 
     def __init__(self, build):
         self.lib = build.library("fused_layer")
@@ -913,11 +918,12 @@ class transform_only:
 
 def fused_kinds(torch, fused_layer, bitops, card, rng, d) -> None:
     """Each fused kind at the serve bucket, whole and transform-only, beside
-    its yardstick (one PyTorch call of the transform's product) and the
-    bounds of both, on CUDA events (tools/xform_step0.py takes the device
-    times: after the serve phase torch.profiler under-counts here); then
-    the kernel's registers and occupancy at each kind's dynamic shared
-    memory."""
+    its plain version, its yardstick (one PyTorch call of the transform's
+    product) and the bounds of both, on CUDA events (tools/xform_step0.py takes the device
+    times: after the serve phase torch.profiler under-counts here); fc is
+    its own launch (fused_fc), which ``transform_only`` does not reach, so
+    its whole time stands as its transform time. Then the kernels'
+    registers and occupancy at each kind's dynamic shared memory."""
     import numpy as np
     from repro_torch.kernels import build
     x_pad, h_pad, bn, q = d["x_pad"], d["h_pad"], d["bn"], d["q"]
@@ -972,12 +978,27 @@ def fused_kinds(torch, fused_layer, bitops, card, rng, d) -> None:
             [(2 * n * c * h, INT8_TC_OPS_PER_S), (2 * n * h, FP32_OPS_PER_S)],
             []),
     }
+    plains = {   # each kind's plain version on the same inputs
+        "gcn_bin_l1 (500 -> 64)": lambda: fl.gcn_bin_l1_plain(
+            x_pad, bn[0], q.w1, bin_b),
+        "gcn_bbf_fbf (words 64 -> 7)": lambda: fl.gcn_bbf_fbf_plain(
+            h_pad, None, q.w2, adj_b),
+        "branch_add (500 -> 64)": lambda: fl.branch_add_plain(
+            x_pad, bn[0], d["w1"], d["w1b"], adj_b),
+        "fc (64 -> 7)": lambda: fl.fc_plain(x_h, bn_h, d["w2"]),
+    }
     out, attrs = {}, {}
     for name, (call, layer, (yname, yard), b_in, b_y, b_out, adj, ops_t,
                ops_a) in kinds.items():
-        row = {"whole_ms": cuda_ms(torch, call)}
-        with transform_only(build):
-            row["transform_ms"] = cuda_ms(torch, call)
+        row = {"whole_ms": cuda_ms(torch, call),
+               "plain_ms": cuda_ms(torch, plains[name], iters=5, warmup=1)}
+        if adj is None:   # fc: one fused_fc launch, no aggregation
+            row["transform_ms"] = row["whole_ms"]
+            row["transform_note"] = ("fused_fc has no aggregation: its "
+                                     "whole time is its transform's")
+        else:
+            with transform_only(build):
+                row["transform_ms"] = cuda_ms(torch, call)
         row["whole_bound_ms"], row["whole_bound_by"] = bound(
             b_in + b_out + (agg_bytes[adj] if adj else 0), ops_t + ops_a)
         row["transform_bound_ms"], row["transform_bound_by"] = bound(
@@ -985,7 +1006,7 @@ def fused_kinds(torch, fused_layer, bitops, card, rng, d) -> None:
         row["yardstick"] = yname
         row["yardstick_ms"] = cuda_ms(torch, yard)
         out[name] = row
-        attrs[name] = fl.attributes(*layer)
+        attrs[name] = fl.attributes(*layer) if adj else fl.fc_attributes(h)
     log("time fused_layer per kind at the bucket: " + json.dumps(out))
     log("kernel attributes fused_layer: " + json.dumps(attrs))
 
@@ -1210,6 +1231,8 @@ def run_serve(torch, flickr) -> tuple:
                 mag = mag + fl._bbf(words_in, xs, args[2]).abs()
             hold("fused_layer", got, want, magnitude=mag)
             hold("fused_layer", got, want_cpu, magnitude=mag)
+            if kind == "fc":       # fused_fc against its mirror, bit-exact
+                hold("fused_layer", got, fl.fc_rows_plain(*args))
         cases += 1
     torch.cuda.synchronize()
     log(f"parity (serve kernels): {cases} cases passed in "
@@ -1850,9 +1873,16 @@ def run_sharded(torch, flickr, single, params, art) -> tuple:
     pairs["branch_add+halo"] = pair_case(
         (*fl.transform(x, bn, wa, bn_rcp=True, w_self=ws), rem, a, h, it),
         relu=True)
-    # 7h: SAINT's fc, 64 -> 7, BN by the reciprocal (no aggregation)
+    # 7h: SAINT's fc, 64 -> 7, BN by the reciprocal (no aggregation): its
+    # own launch (fused_fc), also held bit-exact against its mirror; the
+    # yardstick a bf16 matmul of +-1 operands at its shapes, as row 7d's
     xh, bnh, wc = ints((npd, HIDDEN)), bn_of(HIDDEN), weights(n_cls, HIDDEN)
     wk_h = bitops.padded_words(HIDDEN)
+    mirrors = {"fc+rcp": partial(fl.fc_rows_plain, xh, bnh, wc, bn_rcp=True)}
+    a_fc = (2 * card(rng.integers(0, 2, (npd, HIDDEN))) - 1).to(torch.bfloat16)
+    b_fc = (2 * card(rng.integers(0, 2, (HIDDEN, n_cls))) - 1).to(
+        torch.bfloat16)
+    libraries = {"fc+rcp": lambda: a_fc @ b_fc}
     specs["fc+rcp"] = (
         f"shard 0 SAINT fc: ({npd}, {HIDDEN}) -> ({npd}, {n_cls})",
         partial(fl.fc, xh, bnh, wc, bn_rcp=True),
@@ -1873,6 +1903,9 @@ def run_sharded(torch, flickr, single, params, art) -> tuple:
         hold(f"fused_layer/{kind}", got, plain(), n_bits=n_bits,
              magnitude=mag)
         cases += 2
+        if kind in mirrors:
+            hold(f"fused_layer/{kind}", got, mirrors[kind]())
+            cases += 1
     got = words_case[0]()
     hold("fused_layer/gcn_bbf_fbf+halo", got, words_case[0]())
     hold("fused_layer/gcn_bbf_fbf+halo", got, words_case[1](),
@@ -1891,12 +1924,16 @@ def run_sharded(torch, flickr, single, params, art) -> tuple:
     records = []
     for kind, (shape, call, plain, _, _, b) in specs.items():
         name = f"fused_layer/{kind}"
+        lib = libraries.get(kind)
         records.append(kernel_record(
             name, shape, launches[name], err[name], cuda_ms(torch, call),
-            cuda_ms(torch, plain, iters=5, warmup=1), None, b))
+            cuda_ms(torch, plain, iters=5, warmup=1),
+            cuda_ms(torch, lib) if lib is not None else None, b))
     log("device ms (torch.profiler), sharded forms at shard 0: " + json.dumps(
-        {kind: device_ms(torch, call)
-         for kind, (_, call, _, _, _, _) in specs.items()}))
+        {**{kind: device_ms(torch, call)
+            for kind, (_, call, _, _, _, _) in specs.items()},
+         **{f"{kind} library": device_ms(torch, lib)
+            for kind, lib in libraries.items()}}))
     # the step (transform + pair launch) and the pair launch alone
     steps = {k: v[1] for k, v in specs.items() if k in pairs}
     steps["gcn_bbf_fbf+halo words"] = words_case[0]

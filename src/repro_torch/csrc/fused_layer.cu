@@ -11,12 +11,14 @@
 //                BMM.BBF -> BSpMM.FBF [-> ReLU];
 //   branch_add   BN -> quantize_act -> BMM.BBF self + BSpMM.FBF(BMM.BBF agg)
 //                [-> ReLU];
-//   fc           BN -> quantize_act -> BMM.BBF.
+//   fc           BN -> quantize_act -> BMM.BBF: no aggregation, so it is an
+//                ordinary launch of its own over rows (fused_fc, at the
+//                end of this file).
 //
-// Aggregation needs every row's transform first, so the kernel is launched
-// cooperatively (all blocks resident, grid sized from the occupancy with
-// the launch's dynamic shared memory) and runs three grid-stride phases
-// separated by grid-wide barriers:
+// Aggregation needs every row's transform first, so fused_layer_kernel is
+// launched cooperatively (all blocks resident, grid sized from the
+// occupancy with the launch's dynamic shared memory) and runs three
+// grid-stride phases separated by grid-wide barriers:
 //   1. transform: one block per row tile.
 //      BMM.FBB (gcn_bin_l1): a register-tiled fp32 GEMM of 192 rows x 64
 //      columns a tile pass, 12 x 4 outputs a thread. Chunks of 32 features
@@ -41,11 +43,12 @@
 //   3. combine: one warp per tile-row adds its items' partials in item order,
 //      then applies the row scale, the self branch and the ReLU, or the sign
 //      (with the tail bits past the width cleared).
-// With aggregate = 0 the kernel stops after phase 1: its transform alone,
-// the rows the sharded executors exchange, written without the column scale
-// (and, with w_s, the self branch's product to ys). Their pair step then
-// aggregates it with fused_pair.cu. bn_rcp takes BN as (x - mu) * (1 / sd),
-// the executors' apply_bn, where the single-host kinds divide.
+// With aggregate = 0 the kernel stops after phase 1: the sharded steps'
+// transform alone, the rows the executors exchange, written without the
+// column scale (and, with w_s, the self branch's product to ys). Their pair
+// step then aggregates it with fused_pair.cu. bn_rcp takes BN as
+// (x - mu) * (1 / sd), the executors' apply_bn, where the single-host kinds
+// divide; fc takes either form.
 // Every sum has a fixed order, so two runs give the same bits. The scratch
 // (transform output, partials) comes from the caller's torch.empty.
 // Bound on H100: BMM.FBB is 2 F H fp32 operations a row (89,252 x 500 x 64
@@ -103,7 +106,7 @@ struct Params {
   const float* s_s;
   int ho;
   int fbb;        // BMM.FBB + BSpMM.BBB (gcn_bin_l1)
-  int aggregate;  // 0: no aggregation (fc)
+  int aggregate;  // 0: the transform alone (the sharded steps)
   int s2;
   int relu;
   // adjacency
@@ -660,6 +663,123 @@ __global__ void __launch_bounds__(kThreads, 2) fused_layer_kernel(Params p) {
   }
 }
 
+// fc: BN -> quantize_act -> BMM.BBF, the fc body of fused_call, with no
+// aggregation and so no grid barrier: an ordinary launch over rows
+// (fused_fc), bit-equal to the cooperative kernel's transform. A warp takes
+// kFcRows consecutive rows. Lane l reads feature 32 kc + l of each of them
+// straight from device memory (a row's chunk is one 128-byte load a warp;
+// chunk kc + 1 is in flight while chunk kc is quantized) and adds its |z|
+// in chunk order; one ballot a chunk and row gives the sign word. So the
+// words and the row scale (warp_sum / f) come in the order of
+// transform_bbf. The words and row scales go to the warp's slice of shared
+// memory; then lane l takes the outputs l, l + 32, ... of the warp's rows
+// (row-major, so the stores are contiguous): f - 2 popc(a ^ w) over the
+// row's words, times the row scale, times the column's scale, the weights
+// read through the read-only cache. At most 16 KB of shared memory (the
+// words and row scales), no opt-in. Measured at 64 -> 7 on device time
+// (24,508 and 89,252 rows): weights staged in shared memory once a block
+// read 6-15% slower, a warp taking 2 or 4 groups of rows in turn (the next
+// group's loads under this group's outputs) 9-40% slower, 2 rows a warp
+// 21-30% and a cap of 32 registers (8 blocks a SM) 9-12% slower, 8 rows a
+// warp 2% faster on the fewer rows and 7% slower on the more
+// (tools/xform_variants.py times the last three).
+// Bound on H100: the bytes of x and of the fp output (64 -> 7: 284 bytes a
+// row, 85 ps at 3.35 TB/s, against 448 binary multiply-adds, under 1 ps at
+// the int8 tensor-core rate). At the serve bucket it takes about 2.4 times
+// that. By a count of its instructions (per element a load, BN with an
+// IEEE division on the single-host path, |z| and a compare; per row a
+// ballot a chunk, the butterfly and the product) the instruction rate,
+// not the bytes, bounds it; no profiler counter on the card confirms that.
+constexpr int kFcWarps = 8;
+constexpr int kFcThreads = kFcWarps * 32;
+constexpr int kFcRows = 4;                        // rows a warp
+constexpr int kFcBlockRows = kFcWarps * kFcRows;  // 32 rows a block
+
+struct FcParams {
+  // input: fp rows x (with BN when mu != null) or packed words xw
+  const float* x;
+  const uint32_t* xw;
+  const float* mu;
+  const float* sd;  // sd, or 1 / sd with bn_rcp
+  long long n_in;
+  int f;   // input features
+  int wk;  // words of f
+  int bn_rcp;
+  // weights: packed W.T (ho, wk) and per-output scales
+  const uint32_t* w_a;
+  const float* s_a;
+  int ho;
+  float* out;  // (n_in, ho)
+};
+
+// Dynamic shared memory of fused_fc_kernel: the words and row scales of
+// every warp's rows.
+int fc_smem(int wk) { return 4 * kFcBlockRows * (wk + 1); }
+
+template <bool kRcp>
+__global__ void __launch_bounds__(kFcThreads) fused_fc_kernel(FcParams p) {
+  extern __shared__ uint32_t s_fc[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t* words = s_fc + warp * kFcRows * p.wk;             // [kFcRows][wk]
+  float* rs = (float*)(s_fc + kFcBlockRows * p.wk) + warp * kFcRows;
+  const long long r0 = ((long long)blockIdx.x * kFcWarps + warp) * kFcRows;
+  if (r0 >= p.n_in) return;
+  const int rows = (int)min((long long)kFcRows, p.n_in - r0);
+  if (p.x) {
+    const int n_xc = (p.f + 31) / 32;
+    float cur[kFcRows], nxt[kFcRows] = {}, sabs[kFcRows] = {};
+    auto load = [&](int kc, float* v) {
+      const int k = kc * 32 + lane;
+#pragma unroll
+      for (int i = 0; i < kFcRows; ++i)
+        v[i] = (i < rows && k < p.f) ? p.x[(r0 + i) * p.f + k] : 0.f;
+    };
+    load(0, cur);
+    for (int kc = 0; kc < n_xc; ++kc) {
+      if (kc + 1 < n_xc) load(kc + 1, nxt);
+      const int k = kc * 32 + lane;
+      const bool in = k < p.f;
+      float mu = 0.f, sd = 1.f;
+      if (p.mu && in) {
+        mu = __ldg(p.mu + k);
+        sd = __ldg(p.sd + k);
+      }
+#pragma unroll
+      for (int i = 0; i < kFcRows; ++i) {
+        float z = cur[i];
+        if (in) {
+          if (p.mu) z = kRcp ? (z - mu) * sd : (z - mu) / sd;
+          sabs[i] += fabsf(z);
+        }
+        const uint32_t word = __ballot_sync(kFull, in && z >= 0.f);
+        if (lane == 0 && i < rows) words[i * p.wk + kc] = word;
+        cur[i] = nxt[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kFcRows; ++i) {
+      const float s = warp_sum(sabs[i]) / (float)p.f;
+      if (lane == 0) rs[i] = s;
+    }
+  } else {
+    for (int e = lane; e < rows * p.wk; e += 32)
+      words[e] = p.xw[r0 * p.wk + e];
+    if (lane < kFcRows) rs[lane] = 1.f;
+  }
+  __syncwarp();
+  float* out = p.out + r0 * p.ho;
+  for (int e = lane; e < rows * p.ho; e += 32) {
+    const int i = e / p.ho, c = e - i * p.ho;
+    const uint32_t* a = words + i * p.wk;
+    const uint32_t* b = p.w_a + (size_t)c * p.wk;
+    int pc = 0;
+    for (int w = 0; w < p.wk; ++w) pc += __popc(a[w] ^ __ldg(b + w));
+    // n_bits - 2 popc(a ^ b), then (count * row scale) * weight scale, the
+    // order of core/bmm.py and of transform_bbf
+    out[e] = (float)(p.f - 2 * pc) * rs[i] * __ldg(p.s_a + c);
+  }
+}
+
 }  // namespace
 
 // Launch one layer cooperatively on `stream`: the transform's dynamic shared
@@ -705,4 +825,32 @@ extern "C" int fused_layer(const void* params, void* stream) {
 extern "C" int fused_layer_attrs(int f, int fbb, int self_branch, int* out) {
   return (int)launch::attributes(fused_layer_kernel<false>, kThreads,
                                  transform_smem(f, fbb, self_branch), out);
+}
+
+// Launch fc on `stream` (fused_fc_kernel): an ordinary launch of
+// kFcBlockRows rows a block, at least one block; no occupancy query, no
+// shared-memory opt-in, no grid barrier. A launch the card refuses returns
+// its error.
+extern "C" int fused_fc(const void* params, void* stream) {
+  FcParams p = *(const FcParams*)params;
+  if (p.wk > kMaxWords || (p.ho + 31) / 32 > kMaxChunks ||
+      p.wk != (p.f + 31) / 32)
+    return (int)cudaErrorInvalidValue;
+  long long blocks = (p.n_in + kFcBlockRows - 1) / kFcBlockRows;
+  if (blocks < 1) blocks = 1;
+  void* args[] = {&p};
+  const cudaError_t e = cudaLaunchKernel(
+      p.bn_rcp ? (const void*)fused_fc_kernel<true>
+               : (const void*)fused_fc_kernel<false>,
+      dim3((unsigned)blocks), dim3(kFcThreads), args,
+      (size_t)fc_smem(p.wk), (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// Registers a thread, static shared bytes, resident blocks per SM and the
+// dynamic shared bytes of fused_fc_kernel for f input features: out[0..3].
+extern "C" int fused_fc_attrs(int f, int* out) {
+  return (int)launch::attributes(fused_fc_kernel<false>, kFcThreads,
+                                 fc_smem((f + 31) / 32), out);
 }

@@ -48,7 +48,9 @@ SIGNATURES = {
                                      _I, _I, _I, _I, _L, _I, _I, _I, _I, _P),
                    "bspmm_fp_grid_attrs": (_I, _I, _I, _P)},
     "fused_layer": {"fused_layer": (_P, _P),
-                    "fused_layer_attrs": (_I, _I, _I, _P)},
+                    "fused_layer_attrs": (_I, _I, _I, _P),
+                    "fused_fc": (_P, _P),
+                    "fused_fc_attrs": (_I, _P)},
     "fused_pair": {"fused_pair": (_P, _P),
                    "fused_pair_fp_attrs": (_I, _I, _I, _P),
                    "fused_pair_bits_attrs": (_I, _I, _P)},

@@ -15,17 +15,23 @@ fuses per layer KIND, the four the model families compose
   agg) [-> ReLU] (SAGE / SAINT layers);
 * :func:`fc` — BN -> quantize_act -> BMM.BBF (SAINT's last layer).
 
-The CUDA kernel is cooperative: a transform phase (one block per row
-tile: a register-tiled fp32 GEMM for BMM.FBB; quantize_act into a shared
-tile and the b1 tensor-core XNOR-popc tile of ``csrc/xnor.cuh`` for
-BMM.BBF), a grid barrier, per work item partial sums of the aggregation
-(at most ``GROUPS_PER_ITEM`` groups of one tile-row), a barrier, and a
-combine phase that adds each tile-row's items in item order. Its launcher
-sizes the shared memory and the grid. On a CPU tensor each kind runs its
-plain version: the same transform with PyTorch ops, then
-:func:`agg_fp` / :func:`agg_counts`, the BSpMM plain versions of
-``bspmm_kernel`` (the order of the sums does not change the integer
-counts, and fp results are held to a tolerance of their sum of |terms|).
+The three aggregating kinds run one cooperative kernel
+(``fused_layer``): a transform phase (one block per row tile: a
+register-tiled fp32 GEMM for BMM.FBB; quantize_act into a shared tile and
+the b1 tensor-core XNOR-popc tile of ``csrc/xnor.cuh`` for BMM.BBF), a
+grid barrier, per work item partial sums of the aggregation (at most
+``GROUPS_PER_ITEM`` groups of one tile-row), a barrier, and a combine
+phase that adds each tile-row's items in item order. Its launcher sizes
+the shared memory and the grid. :func:`fc` aggregates nothing, so it is
+an ordinary launch of its own over rows (``fused_fc``): a warp quantizes
+a few rows from device memory in the transform's order and multiplies
+their words with the weights, read through the read-only cache; its
+outputs are bit-equal to the cooperative kernel's transform and to
+:func:`fc_rows_plain`. On a CPU tensor each kind runs its plain version:
+the same transform with PyTorch ops, then :func:`agg_fp` /
+:func:`agg_counts`, the BSpMM plain versions of ``bspmm_kernel`` (the
+order of the sums does not change the integer counts, and fp results are
+held to a tolerance of their sum of |terms|).
 
 The sharded executors' step (the reference's ``fused_call`` of BN ->
 transform -> ``agg(intra, y) + agg(halo, rem)`` -> post) is two launches:
@@ -41,9 +47,10 @@ and the ReLU, or the sign (plain: :func:`pair_plain`, on
 
 :data:`KERNEL_CALLS` counts fused layers (``fused``) and the aggregations
 folded into them (``fused_aggs``) on either device, as the reference's
-trace-time counters do; :data:`LAUNCHES` counts CUDA launches, and
-:data:`ENTRIES` the entries into the two kernels on either device (a
-sharded step is two: its transform and its pair).
+trace-time counters do; :data:`LAUNCHES` counts CUDA launches (an fc
+launch counts under ``fused_layer``, as every fused layer does), and
+:data:`ENTRIES` the entries into the fused layer and the pair kernel on
+either device (a sharded step is two: its transform and its pair).
 """
 from __future__ import annotations
 
@@ -62,10 +69,10 @@ if TYPE_CHECKING:   # core.binarize imports kernels.ops, which imports this
     from ..core.binarize import BinTensor
 
 KERNEL_CALLS = {"fused": 0, "fused_aggs": 0}
-# CUDA launches (plain calls not counted): every launch of the layer kernel
-# and of the pair kernel, and apart the sharded executors' forms: the pair
-# step of each kind (its fused_pair launch), fc with BN by the reciprocal,
-# and the transform alone
+# CUDA launches (plain calls not counted): every launch of the layer kernels
+# (fused_layer, and fc's fused_fc) and of the pair kernel, and apart the
+# sharded executors' forms: the pair step of each kind (its fused_pair
+# launch), fc with BN by the reciprocal, and the transform alone
 PAIR_FORMS = ("gcn_bin_l1+halo", "gcn_bbf_fbf+halo", "branch_add+halo",
               "fc+rcp", "transform")
 LAUNCHES = {"fused_layer": 0, "fused_pair": 0,
@@ -226,6 +233,42 @@ def fc_plain(h, bn, w: BinTensor, bn_rcp: bool = False) -> torch.Tensor:
     return _bbf(words, xs, w)
 
 
+def _lane_row_scale(z: torch.Tensor) -> torch.Tensor:
+    """quantize_act's row scale in the kernels' order: lane l of a warp
+    adds |z| of features l, 32 + l, ... in turn, the 32 partials are added
+    by the xor butterfly 16, 8, 4, 2, 1 (``warp_sum``), and the sum is
+    divided by the width (elementwise: a divisor that is a Python number
+    may become a multiply by its reciprocal on the card)."""
+    n, f = z.shape
+    lanes = torch.nn.functional.pad(z.abs(), (0, -f % WORD)).reshape(
+        n, -1, WORD)
+    s = lanes[:, 0]
+    for kc in range(1, lanes.shape[1]):
+        s = s + lanes[:, kc]
+    lane = torch.arange(WORD, device=z.device)
+    for o in (16, 8, 4, 2, 1):
+        s = s + s[:, lane ^ o]
+    return s[:, :1] / s.new_full((n, 1), float(f))
+
+
+def _fc_rows_input(h, bn, bn_rcp: bool = False):
+    """(sign words, row scales) of ``fused_fc``'s quantize_act: the words of
+    BN(h) and the row scale of :func:`_lane_row_scale`; int32 rows are
+    packed words with unit scales."""
+    if h.dtype == torch.int32:
+        return _input(h, None)
+    z = _bn(h, bn, bn_rcp)
+    return pack_kernel.binarize_pack_plain(z), _lane_row_scale(z)
+
+
+def fc_rows_plain(h, bn, w: BinTensor, bn_rcp: bool = False) -> torch.Tensor:
+    """Plain mirror of the ``fused_fc`` kernel's order, bit for bit on the
+    same device: :func:`_fc_rows_input`, then ``(count * row scale) *
+    weight scale``. For the tests and ``chip_smoke.py``; :func:`fc` on a
+    CPU tensor runs :func:`fc_plain`."""
+    return _bbf(*_fc_rows_input(h, bn, bn_rcp), w)
+
+
 def transform_plain(h, bn, w: BinTensor, fbb: bool = False,
                     bn_rcp: bool = False,
                     w_self: Optional[BinTensor] = None):
@@ -263,6 +306,16 @@ class _Params(ctypes.Structure):
     ]
 
 
+class _FcParams(ctypes.Structure):
+    """Mirror of ``FcParams`` in ``csrc/fused_layer.cu`` (same field
+    order)."""
+    _fields_ = [
+        ("x", _P), ("xw", _P), ("mu", _P), ("sd", _P),
+        ("n_in", _L), ("f", _I), ("wk", _I), ("bn_rcp", _I),
+        ("w_a", _P), ("s_a", _P), ("ho", _I), ("out", _P),
+    ]
+
+
 class _PairParams(ctypes.Structure):
     """Mirror of ``Params`` in ``csrc/fused_pair.cu`` (same field order)."""
     _fields_ = [
@@ -292,6 +345,12 @@ def attributes(f: int, fbb: bool = False,
                             int(self_branch))
 
 
+def fc_attributes(f: int) -> Dict[str, int]:
+    """The same for fc's own kernel (``fused_fc``) at ``f`` input
+    features."""
+    return build.attributes("fused_layer", "fused_fc", f)
+
+
 def pair_attributes(ho: int, fbb: bool = False) -> Dict[str, int]:
     """The same for the pair kernel built for ``ho`` output columns: its fp
     instance (the lane layout of aligned rows), or its counts instance
@@ -313,24 +372,18 @@ def _ptr(t: Optional[torch.Tensor], dev, dtype, what: str):
     return t.data_ptr()
 
 
-def _launch(h: torch.Tensor, bn, w_a: BinTensor, adj: Optional[FRDCMatrix],
-            w_s: Optional[BinTensor] = None, fbb: bool = False,
-            relu: bool = False, trinary_mode: str = "s3_two_popc",
-            item_ptr: Optional[torch.Tensor] = None,
-            bn_rcp: bool = False, form: Optional[str] = None):
-    """One fused launch (``form``: its :data:`PAIR_FORMS` counter). Without
-    ``adj`` the kernel stops after its transform and returns it: BMM.FBB
-    sign words, or BMM.BBF rows, and with ``w_s`` the pair (rows, self
-    branch rows)."""
+def _set_input(p, h: torch.Tensor, bn, w_a: BinTensor, bn_rcp: bool,
+               keep: list, fbb: bool = False) -> torch.Tensor:
+    """Check a layer input ``h`` (fp rows, or int32 words) against the
+    weights ``w_a`` and put it, its BN and the weights in the struct ``p``
+    (``_Params`` or ``_FcParams``); ``keep`` gets the tensors made here
+    whose pointers the struct holds. Returns ``h`` contiguous."""
     dev = h.device
     if h.ndim != 2 or h.dtype not in (torch.float32, torch.int32):
         raise ValueError(f"fused layer takes 2-D float32 rows or int32 words, "
                          f"got {h.dtype} {tuple(h.shape)}")
-    if trinary_mode not in TRINARY_MODES:
-        raise ValueError(trinary_mode)
     packed_in = h.dtype == torch.int32
     h = h.contiguous()
-    n_in = h.shape[0]
     ho, wk = w_a.packed.shape
     f = int(w_a.n)
     if wk > MAX_IN_WORDS or ho > MAX_OUT or (fbb and packed_in):
@@ -340,6 +393,36 @@ def _launch(h: torch.Tensor, bn, w_a: BinTensor, adj: Optional[FRDCMatrix],
     if h.shape[1] != (wk if packed_in else f):
         raise ValueError(f"fused layer: input width {h.shape[1]} does not "
                          f"match the weights ({f} features)")
+    if packed_in:
+        p.xw = _ptr(h, dev, torch.int32, "input words")
+    else:
+        p.x = _ptr(h, dev, torch.float32, "input rows")
+        if bn is not None:
+            sd = bn[1].reshape(-1)
+            keep.append(bn[0].reshape(-1).contiguous())
+            p.mu = _ptr(keep[-1], dev, torch.float32, "BN mean")
+            # the reciprocal as apply_bn takes it: one IEEE division here
+            keep.append((1.0 / sd if bn_rcp else sd).contiguous())
+            p.sd = _ptr(keep[-1], dev, torch.float32, "BN sd")
+            p.bn_rcp = int(bn_rcp)
+    p.n_in, p.f, p.wk, p.ho = h.shape[0], f, wk, ho
+    p.w_a = _ptr(w_a.packed, dev, torch.int32, "weights")
+    keep.append(w_a.scale.reshape(-1).contiguous())
+    p.s_a = _ptr(keep[-1], dev, torch.float32, "weight scales")
+    return h
+
+
+def _launch(h: torch.Tensor, bn, w_a: BinTensor, adj: Optional[FRDCMatrix],
+            w_s: Optional[BinTensor] = None, fbb: bool = False,
+            relu: bool = False, trinary_mode: str = "s3_two_popc",
+            item_ptr: Optional[torch.Tensor] = None,
+            bn_rcp: bool = False, form: Optional[str] = None):
+    """One fused launch (``form``: its :data:`PAIR_FORMS` counter). Without
+    ``adj`` the kernel stops after its transform and returns it: BMM.FBB
+    sign words, or BMM.BBF rows, and with ``w_s`` the pair (rows, self
+    branch rows)."""
+    if trinary_mode not in TRINARY_MODES:
+        raise ValueError(trinary_mode)
     p = _Params()
     keep = []   # tensors whose pointers the struct holds
 
@@ -347,22 +430,8 @@ def _launch(h: torch.Tensor, bn, w_a: BinTensor, adj: Optional[FRDCMatrix],
         keep.append(t)
         return t
 
-    if packed_in:
-        p.xw = _ptr(h, dev, torch.int32, "input words")
-    else:
-        p.x = _ptr(h, dev, torch.float32, "input rows")
-        if bn is not None:
-            sd = bn[1].reshape(-1)
-            p.mu = _ptr(hold(bn[0].reshape(-1).contiguous()), dev,
-                        torch.float32, "BN mean")
-            # the reciprocal as apply_bn takes it: one IEEE division here
-            p.sd = _ptr(hold((1.0 / sd if bn_rcp else sd).contiguous()), dev,
-                        torch.float32, "BN sd")
-            p.bn_rcp = int(bn_rcp)
-    p.n_in, p.f, p.wk, p.ho = n_in, f, wk, ho
-    p.w_a = _ptr(w_a.packed, dev, torch.int32, "weights")
-    p.s_a = _ptr(hold(w_a.scale.reshape(-1).contiguous()), dev, torch.float32,
-                 "weight scales")
+    h = _set_input(p, h, bn, w_a, bn_rcp, keep, fbb)
+    dev, n_in, ho = h.device, p.n_in, p.ho
     ys = None
     if w_s is not None:
         p.w_s = _ptr(w_s.packed, dev, torch.int32, "self weights")
@@ -415,6 +484,25 @@ def _launch(h: torch.Tensor, bn, w_a: BinTensor, adj: Optional[FRDCMatrix],
         KERNEL_CALLS["fused_aggs"] += 1
     elif ys is not None:
         return out, ys
+    return out
+
+
+def _fc_launch(h: torch.Tensor, bn, w: BinTensor,
+               bn_rcp: bool = False) -> torch.Tensor:
+    """One launch of ``fused_fc``: BN -> quantize_act -> BMM.BBF over the
+    rows of ``h``, (n, ho) float32. Counted as a fused layer launch, and
+    under ``fused_layer/fc+rcp`` with ``bn_rcp``."""
+    p = _FcParams()
+    keep = []   # tensors whose pointers the struct holds
+    h = _set_input(p, h, bn, w, bn_rcp, keep)
+    out = torch.empty((p.n_in, p.ho), dtype=torch.float32, device=h.device)
+    p.out = out.data_ptr()
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    build.check(build.library("fused_layer").fused_fc(
+        ctypes.byref(p), stream), "fused_fc")
+    LAUNCHES["fused_layer"] += 1
+    if bn_rcp:
+        LAUNCHES["fused_layer/fc+rcp"] += 1
     return out
 
 
@@ -644,10 +732,10 @@ def branch_add(h: torch.Tensor, bn, w_self: BinTensor, w_agg: BinTensor,
 
 def fc(h: torch.Tensor, bn, w: BinTensor, bn_rcp: bool = False
        ) -> torch.Tensor:
-    """BN -> quantize_act -> BMM.BBF."""
+    """BN -> quantize_act -> BMM.BBF: one ``fused_fc`` launch on the card
+    (its own ordinary launch over rows, not the cooperative kernel)."""
     KERNEL_CALLS["fused"] += 1
     with counting.entry(ENTRIES, "fused_layer"):
         if _on_card(h):
-            return _launch(h, bn, w, None, bn_rcp=bn_rcp,
-                           form="fc+rcp" if bn_rcp else None)
+            return _fc_launch(h, bn, w, bn_rcp)
         return fc_plain(h, bn, w, bn_rcp)

@@ -1,7 +1,8 @@
 """Card-only tests of the tiled dense products (``csrc/xnor.cuh``):
-``bmm_xnor`` (``bmm.cu``; its simt route at N <= 8, the mma route above)
-and the fused layer's transform phase (``fused_layer.cu``), against their
-plain PyTorch versions on the same device.
+``bmm_xnor`` (``bmm.cu``; its simt route at N <= 8, the mma route above),
+the fused layer's transform phase (``fused_layer.cu``) and fc's own launch
+over rows (``fused_fc`` in ``fused_layer.cu``), against their plain
+PyTorch versions on the same device.
 
 They need a CUDA device and nvcc (the kernels build on first use) and skip
 elsewhere. No JAX:
@@ -16,8 +17,13 @@ in any order) packed words are bit-exact and fp outputs within 1e-5 of
 their sum of |terms| plus 1e-6 (fp32 aggregation order); on N(0,1) inputs
 the fp outputs hold to the same tolerance, and the BMM.FBB signs equal
 those of the fp64 product wherever |value| exceeds 1e-5 of its sum of
-|terms|. Two runs are bit-equal.
+|terms|. Two runs are bit-equal. ``fused_fc`` equals its mirror
+``fc_rows_plain`` bit for bit at f in {64, 65, 4096} and ho in {7, 41, 256},
+with BN by the division and by the reciprocal, at row counts that are not
+a multiple of a block's 32 rows.
 """
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -250,7 +256,9 @@ def test_fused_largest_weights(cuda):
 def test_fused_refused_launch_raises(cuda, monkeypatch):
     """A launch the card refuses (cudaErrorCooperativeLaunchTooLarge, 720,
     from the launcher) raises in the wrapper, which counts no launch and
-    runs nothing else in its place."""
+    runs nothing else in its place; so does an fc launch, in both BN forms.
+    fc's launcher itself refuses a width past the kernel's
+    (cudaErrorInvalidValue, 1)."""
     rng = np.random.default_rng(15)
     rows = 1001
     src = rng.integers(0, rows, rows)
@@ -258,12 +266,65 @@ def test_fused_refused_launch_raises(cuda, monkeypatch):
     x, bn = _inputs(rng, rows, 64, cuda, normal=False)
     w = _weights(rng, 7, 64, cuda)
     fused_layer.gcn_bbf_fbf(x, bn, w, adj)          # builds and loads
+    fused_layer.fc(x, bn, w)
+    wide = fused_layer._FcParams()
+    wide.f, wide.wk, wide.ho, wide.n_in = 129 * 32, 129, 7, rows
+    assert build.library("fused_layer").fused_fc(
+        ctypes.byref(wide), torch.cuda.current_stream().cuda_stream) == 1
 
     class Refusing:
         def fused_layer(self, params, stream):
             return 720
+
+        def fused_fc(self, params, stream):
+            return 720
     monkeypatch.setitem(build._LIBS, "fused_layer", Refusing())
-    before = fused_layer.LAUNCHES["fused_layer"]
+    before = dict(fused_layer.LAUNCHES)
     with pytest.raises(RuntimeError, match="fused_layer failed: cudaError 720"):
         fused_layer.gcn_bbf_fbf(x, bn, w, adj)
-    assert fused_layer.LAUNCHES["fused_layer"] == before
+    for rcp in (False, True):
+        with pytest.raises(RuntimeError,
+                           match="fused_fc failed: cudaError 720"):
+            fused_layer.fc(x, bn, w, bn_rcp=rcp)
+    assert fused_layer.LAUNCHES == before
+
+
+def _fc_cases(rng, cuda):
+    """(f, ho, x, bn, w) at f in {64, 65, 4096} and ho in {7, 41, 256} on
+    N(0,1) inputs, rows 3,001 (1,001 at 4,096 features)."""
+    for f in (64, 65, 4096):
+        rows = 1001 if f > 1000 else ROWS
+        x, bn = _inputs(rng, rows, f, cuda, normal=True)
+        for ho in (7, 41, 256):
+            yield f, ho, x, bn, _weights(rng, ho, f, cuda, normal=True)
+
+
+@pytest.mark.gpu
+def test_fused_fc_bit_equal_to_mirror(cuda):
+    """fc's own launch (``fused_fc``) in both BN forms: one launch a call
+    (``fc+rcp`` counted for the reciprocal form), two runs bit-equal, and
+    the output bit-equal to ``fc_rows_plain`` on the card; also on packed
+    words and without BN, and at 33 and 1 rows."""
+    rng = np.random.default_rng(16)
+    for f, ho, x, bn, w in _fc_cases(rng, cuda):
+        for rcp in (False, True):
+            ops.reset_launch_counts()
+            got, again = fused_layer.fc(x, bn, w, rcp), fused_layer.fc(
+                x, bn, w, rcp)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            assert counts["fused_layer"] == 2, (f, ho, rcp)
+            assert counts["fused_layer/fc+rcp"] == (2 if rcp else 0)
+            assert torch.equal(got, again), (f, ho, rcp)
+            assert torch.equal(got, fused_layer.fc_rows_plain(x, bn, w, rcp)), \
+                (f, ho, rcp)
+    x, bn = _inputs(rng, 33, 65, cuda, normal=True)
+    h = _words(rng, 33, 65, cuda)
+    w = _weights(rng, 41, 65, cuda, normal=True)
+    for args in ((x, None, w), (h, None, w), (x[:1], bn, w), (x, bn, w)):
+        assert torch.equal(fused_layer.fc(*args),
+                           fused_layer.fc_rows_plain(*args))
+    for f in (64, 4096):
+        a = fused_layer.fc_attributes(f)
+        assert 0 < a["dynamic_smem_bytes"] <= 48 * 1024, (f, a)
+        assert a["blocks_per_sm"] >= 1 and a["registers"] <= 255, a

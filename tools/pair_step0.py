@@ -15,7 +15,9 @@ tree or on another one (``--tree``, e.g. an earlier commit unpacked with
 1. the four pair forms at shard 0's shapes (24,508 rows, halo 55,716): GCN
    "bin" layer 1 (500 -> 64 sign words over the 0/1 pair), GCN "full"
    layer 1 (500 -> 64, scaled, ReLU), GCN "bin" layer 2 (words 64 -> 7)
-   and SAGE layer 1 (self + mean, 500 -> 64, ReLU), on seeded inputs:
+   and SAGE layer 1 (self + mean, 500 -> 64, ReLU), on seeded inputs,
+   and SAINT's fc 64 -> 7 with BN by the reciprocal (``fc+rcp``, one
+   launch, on N(0, 1) rows; the step only):
    the step (each kind's entry point with its halo) in CUDA-event ms and
    torch.profiler device ms, its transform alone (a tree with the pair
    kernel: ``fused_layer.transform``; an older tree: the one launch with
@@ -142,7 +144,8 @@ def sessions(flickr):
 
 def step_calls(sess):
     """name -> (step, transform alone, pair alone or None, pair bound or
-    None, its inputs) of the four pair forms at shard 0, seeded inputs."""
+    None) of the four pair forms and of fc+rcp (step only) at shard 0,
+    seeded inputs."""
     rng = np.random.default_rng(SEED + 21)
 
     def card(a):
@@ -223,10 +226,19 @@ def step_calls(sess):
                 bn_rcp=True, **kw),
         partial(fl.transform, x, bn, wa, bn_rcp=True, w_self=ws)
         if HAS_PAIR else None, (rem, a, h, it), dict(relu=True), False)
+    # 7h: SAINT's fc 64 -> 7 with BN by the reciprocal, one launch and no
+    # pair, on N(0, 1) rows (so the order of its row scale's sum shows)
+    xf = card(rng.standard_normal((a.n_rows, HIDDEN)).astype(np.float32))
+    bnf = (card((0.1 * rng.standard_normal((1, HIDDEN))).astype(np.float32)),
+           card(rng.uniform(0.5, 2.0, (1, HIDDEN)).astype(np.float32)))
+    wf = BinTensor(words(n_cls, HIDDEN), card(rng.uniform(
+        0.5, 1.5, (n_cls, 1)).astype(np.float32)), HIDDEN)
+    forms["fc+rcp"] = (partial(fl.fc, xf, bnf, wf, bn_rcp=True), None, None,
+                       {}, False)
     out = {}
     for name, (step, xform, rest, pkw, words_) in forms.items():
         pair = bnd = None
-        if HAS_PAIR:
+        if HAS_PAIR and rest is not None:
             y = xform()
             y, ys = y if isinstance(y, tuple) else (y, None)
             pair = partial(fl.pair, y, ys, *rest, **pkw)
@@ -255,16 +267,16 @@ def main():
         for turn in range(2):
             row.setdefault("step_ms", []).append(cuda_ms(torch, step))
             row.setdefault("step_device_ms", []).append(device_ms(torch, step))
-            if HAS_PAIR:
+            if pair is not None:
                 row.setdefault("transform_ms", []).append(cuda_ms(torch, xform))
                 row.setdefault("pair_ms", []).append(cuda_ms(torch, pair))
                 row.setdefault("pair_device_ms", []).append(
                     device_ms(torch, pair))
-            else:
+            elif not HAS_PAIR:
                 with transform_only(build):
                     row.setdefault("transform_ms", []).append(
                         cuda_ms(torch, step))
-        if HAS_PAIR:
+        if pair is not None:
             row["pair_bound_ms"], row["pair_bound_by"] = bnd
             it = pair.args[5]
             row["tasks"], row["multi_item_tasks"] = (it.tasks.shape[0],

@@ -15,8 +15,11 @@ tree or on another one (``--tree``, e.g. an earlier commit unpacked with
    without BN, to show the cost of its division),
    ``gcn_bbf_fbf`` on packed words 64 -> 7, ``branch_add`` 500 -> 64 and
    ``fc`` 64 -> 7, whole and transform-only (the wrapper's own launch with
-   ``aggregate = 0``: the kernel returns after its transform phase), median
-   CUDA-event ms and torch.profiler device ms, each measured twice in turns;
+   ``aggregate = 0``: the kernel returns after its transform phase; fc
+   aggregates nothing, and on a tree where it is its own launch,
+   ``fused_fc``, the patch does not reach it: its two readings are of the
+   same launch), median CUDA-event ms and torch.profiler device ms, each
+   measured twice in turns;
 2. ``bmm_xnor`` in counts mode at the four (M, N, K) that the five forwards
    of ``chip_smoke.py`` launch, beside a bf16 ``torch.matmul`` of the
    unpacked +-1 operands;

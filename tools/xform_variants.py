@@ -23,8 +23,16 @@ Each variant rewrites constants of a source in a copy under
   bucket of full Flickr, whole and transform-only; every variant's outputs
   must equal the first one's.
 
-Times are torch.profiler device ms (and CUDA-event ms for ``bmm_xnor``),
-the variants in turns, twice. Nothing here is part of the port.
+* ``csrc/fused_layer.cu``'s fc launch (``fused_fc``): the rows a warp
+  takes (``kFcRows``) and a register cap for 8 blocks a SM
+  (``__launch_bounds__``). ``fused_layer.fc`` runs 64 -> 7 at
+  rows 7h (shard 0 of the P = 4 plan, 24,508 rows, BN by the reciprocal)
+  and 7d (the serve bucket, 89,252 rows, BN by the division) on N(0, 1)
+  inputs; every variant's outputs must equal the first one's.
+
+Times are torch.profiler device ms (and CUDA-event ms for ``bmm_xnor`` and
+``fused_fc``), the variants in turns, twice. ``--only bmm|fused|fc`` runs
+one section. Nothing here is part of the port.
 """
 import ctypes
 import json
@@ -66,6 +74,17 @@ FUSED_VARIANTS = {
     "8 rows": {FBB_RM: "constexpr int kFbbRM = 8, kFbbRN = 4;"},
     "2 stages": {STAGES: "constexpr int kBbfStages = 2;"},
 }
+FC_ROWS = r"constexpr int kFcRows = \d+;"
+FC_BOUNDS = r"__launch_bounds__\(kFcThreads\)"
+FC_VARIANTS = {
+    "shipped (4 rows a warp)": {},
+    "2 rows a warp": {FC_ROWS: "constexpr int kFcRows = 2;"},
+    "8 rows a warp": {FC_ROWS: "constexpr int kFcRows = 8;"},
+    "8 blocks a SM (32 registers)": {
+        FC_BOUNDS: "__launch_bounds__(kFcThreads, 8)"},
+}
+# fc's rows at 7h (shard 0, BN by the reciprocal) and 7d (the serve bucket)
+FC_SHAPES = (("7h", 24508, True), ("7d", 89252, False))
 # bmm_xnor's (M, N, K) in the five forwards of chip_smoke.py
 BMM_SHAPES = ((89250, 64, 500), (89250, 7, 64), (89250, 64, 64),
               (23296, 41, 64))
@@ -181,11 +200,54 @@ def fused_tiles(rng) -> dict:
     return res
 
 
+def fc_variants(rng) -> dict:
+    libs = {name: make("fused_layer", name, subs)
+            for name, subs in FC_VARIANTS.items()}
+
+    def card(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    h, c = 64, 7
+    w = BinTensor(bitops.pack_bits(card(rng.integers(0, 2, (c, h)))),
+                  card(rng.uniform(0.5, 1.5, (c, 1)).astype(np.float32)), h)
+    bn = (card(0.1 * rng.standard_normal((1, h)).astype(np.float32)),
+          card(rng.uniform(0.5, 2.0, (1, h)).astype(np.float32)))
+    calls = {}
+    for tag, rows, rcp in FC_SHAPES:
+        x = card(rng.standard_normal((rows, h)).astype(np.float32))
+        calls[f"{tag} {rows}x{h}->{c}"] = (
+            lambda x=x, rcp=rcp: fused_layer.fc(x, bn, w, bn_rcp=rcp))
+    res, first = {}, None
+    order = in_turns(FC_VARIANTS)
+    for name in order:
+        build._LIBS["fused_layer"] = libs[name]
+        outs = [call() for call in calls.values()]
+        if first is None:
+            first = outs
+        elif not all(torch.equal(a, b) for a, b in zip(outs, first)):
+            sys.exit(f"xform_variants: fc {name}'s outputs differ from "
+                     f"{order[0]}'s")
+        row = res.setdefault(name, {})
+        row["attributes"] = fused_layer.fc_attributes(h)
+        for cname, call in calls.items():
+            for unit, timer in (("ms", cuda_ms), ("device ms", device_ms)):
+                row.setdefault(f"{cname} {unit}", []).append(
+                    timer(torch, call))
+    return res
+
+
 def main():
+    only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv \
+        else None
     build.build_all(["bmm", "fused_layer"])
     rng = np.random.default_rng(14)
-    print("bmm_xnor routes: " + json.dumps(bmm_routes(rng), indent=1), flush=True)
-    print("fused transform tiles: " + json.dumps(fused_tiles(rng), indent=1))
+    if only in (None, "bmm"):
+        print("bmm_xnor routes: " + json.dumps(bmm_routes(rng), indent=1),
+              flush=True)
+    if only in (None, "fused"):
+        print("fused transform tiles: " + json.dumps(fused_tiles(rng),
+                                                     indent=1), flush=True)
+    if only in (None, "fc"):
+        print("fc launch: " + json.dumps(fc_variants(rng), indent=1))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip())
