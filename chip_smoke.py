@@ -300,6 +300,7 @@ REPLACES.update({f"fused_layer/{k}": REPLACES["fused_pair" if "+halo" in k
                  for k in PAIR_KINDS})
 FORWARD_KERNELS = ("binarize_pack", "bmm_xnor", "bspmm_bits", "bspmm_fp")
 SERVE_KERNELS = ("bspmm_bits_grid", "bspmm_fp_grid", "fused_layer")
+TASK_FIELDS = ("tasks", "n_part")   # a fused bucket's task list (adapters)
 GRID_BLOCK = (32, 32)      # the (b) plan's bspmm_block
 SERVE_BATCH = 32           # seeds per serve_subgraph call (max_batch)
 SERVE_BATCHES = 8          # batches per GCN way; SAGE and SAINT take 2
@@ -417,27 +418,32 @@ def host_ms(torch, fn, iters: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, iters: int = 20) -> float:
+def device_ms(torch, fn, iters: int = 20, tries: int = 3) -> float:
     """Mean device ms a call of ``fn`` spends in kernels and memsets
     (torch.profiler), after one warm-up: unlike ``cuda_ms`` it leaves out
     the time the card waits for the host between launches. The profiler
     can lose kernel records (seen in a process that had loaded several
-    builds of one kernel), so each kernel counts its mean over the
-    launches recorded, times its launches a call."""
+    builds of one kernel, and after the serve phase), so each kernel counts
+    its mean over the launches recorded, times its launches a call, and a
+    window with no device record at all is profiled again, up to
+    ``tries`` windows."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     total = 0.0
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.count:
-            t = e.device_time_total if hasattr(e, "device_time_total") \
-                else e.cuda_time_total
-            total += t / e.count * max(1, round(e.count / iters))
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.count:
+                t = e.device_time_total if hasattr(e, "device_time_total") \
+                    else e.cuda_time_total
+                total += t / e.count * max(1, round(e.count / iters))
+        if total:
+            break
     return total / 1e3
 
 
@@ -531,17 +537,20 @@ def drive(torch, launches, path, expect, fn):
     return out, counts
 
 
-def agree(what, got, want) -> None:
+def agree(what, got, want) -> tuple:
     """The rule of phase 3 on host logits: rows allclose(rtol = atol =
-    1e-3) and predictions equal, each on at least 99.9% of rows."""
+    1e-3) and predictions equal, each on at least 99.9% of rows. Returns
+    (rows close, predictions equal, max |dlogit|)."""
     import numpy as np
     close = float(np.isclose(got, want, rtol=1e-3, atol=1e-3)
                   .all(axis=1).mean())
     same = float((got.argmax(1) == want.argmax(1)).mean())
+    worst = float(np.abs(got - want).max())
     log(f"agree {what}: rows close {close:.6f}, predictions {same:.6f}, "
-        f"max |dlogit| {float(np.abs(got - want).max()):.3e}")
+        f"max |dlogit| {worst:.3e}")
     if close < ROWS_CLOSE_MIN or same < PRED_AGREE_MIN:
         raise AssertionError(f"{what}: answers disagree")
+    return close, same, worst
 
 
 def run(torch) -> dict:
@@ -949,14 +958,14 @@ def fused_kinds(torch, fused_layer, bitops, card, rng, d) -> None:
     # transform ops, aggregation ops)
     kinds = {
         "gcn_bin_l1 (500 -> 64)": (
-            lambda: fl.gcn_bin_l1(x_pad, bn[0], q.w1, bin_b, item_ptr=items["bin"]),
+            lambda: fl.gcn_bin_l1(x_pad, bn[0], q.w1, bin_b, tasks=items["bin"]),
             (f, True, False),
             ("fp32 torch.matmul(z, w_eff)", lambda: z @ w_eff),
             4 * n * f + 8 * f + 4 * h * (wk_f + 1), 4 * n * wh, 4 * n * wh, "bin",
             [(2 * n * f * h, FP32_OPS_PER_S)],
             [(2 * nnz["bin"] * h, INT8_TC_OPS_PER_S)]),
         "gcn_bbf_fbf (words 64 -> 7)": (
-            lambda: fl.gcn_bbf_fbf(h_pad, None, q.w2, adj_b, item_ptr=items["adj"]),
+            lambda: fl.gcn_bbf_fbf(h_pad, None, q.w2, adj_b, tasks=items["adj"]),
             (h, False, False),
             ("bf16 torch.matmul", lambda: a_h @ b_hc),
             4 * n * wh + 4 * c * (wh + 1), 4 * n * c, 4 * n * c, "adj",
@@ -964,7 +973,7 @@ def fused_kinds(torch, fused_layer, bitops, card, rng, d) -> None:
             [(2 * nnz["adj"] * c, FP32_OPS_PER_S)]),
         "branch_add (500 -> 64)": (
             lambda: fl.branch_add(x_pad, bn[0], d["w1"], d["w1b"], adj_b,
-                                  item_ptr=items["adj"]),
+                                  tasks=items["adj"]),
             (f, False, True),
             ("bf16 torch.matmul, both weights", lambda: a_f @ b_f2h),
             4 * n * f + 8 * f + 8 * h * (wk_f + 1), 8 * n * h, 4 * n * h, "adj",
@@ -1103,8 +1112,8 @@ def run_serve(torch, flickr) -> tuple:
                                 .view(np.uint8)).sum())
            for k, a in staged.adjs.items()}
     bucket = {k: session_core.frdc_rebuild(
-        {f: v.to(dev) for f, v in a.items() if f != "item_ptr"}, n_pad, n_pad,
-        nnz[k]) for k, a in staged.adjs.items()}
+        {f: v.to(dev) for f, v in a.items() if f not in TASK_FIELDS},
+        n_pad, n_pad, nnz[k]) for k, a in staged.adjs.items()}
     bin_b, adj_b = bucket["bin"], bucket["adj"]
     log(f"serve bucket: {n_pad} rows, groups (real, padded) "
         + json.dumps({k: (real_groups(m), m.n_groups)
@@ -1351,13 +1360,14 @@ def run_serve(torch, flickr) -> tuple:
                                   torch.ones(rows.size, device=dev),
                                   (n_pad, n_pad)).coalesce().to_sparse_csr()
     q, bn = sess_c.qparams, sess_c.bn
-    items = {k: a["item_ptr"].to(dev) for k, a in staged.adjs.items()}
+    items = {k: fused_layer.PairItems(a["tasks"].to(dev), a["n_part"])
+             for k, a in staged.adjs.items()}
 
     def fused_fwd():
         h = fused_layer.gcn_bin_l1(x_pad, bn[0], q.w1, bin_b,
-                                   item_ptr=items["bin"])
+                                   tasks=items["bin"])
         return fused_layer.gcn_bbf_fbf(h, None, q.w2, adj_b,
-                                       item_ptr=items["adj"])
+                                       tasks=items["adj"])
 
     def fused_plain():
         h = fused_layer.gcn_bin_l1_plain(x_pad, bn[0], q.w1, bin_b)
@@ -2417,6 +2427,19 @@ def run_engine(torch, flickr, stores, sharded_store, single) -> dict:
     return launches
 
 
+def walk_fp(adj, x):
+    """``ops.bspmm_fp`` on the CPU in the 1D ``bspmm_fp`` kernel's
+    summation order (``bspmm_fp_walk_plain``): the column scale folded into
+    x, the raw sums, the crop, the row scale."""
+    from repro_torch.kernels import bspmm_kernel
+    if adj.col_scale is not None:
+        x = x * adj.col_scale[:, None].to(x.dtype)
+    out = bspmm_kernel.bspmm_fp_walk_plain(adj, x)[: adj.n_rows]
+    if adj.row_scale is not None:
+        out = out * adj.row_scale[:, None].to(out.dtype)
+    return out
+
+
 def run_train(torch, flickr, adjs) -> dict:
     """Phase 13: train on full Flickr on the card, run the trained weights
     through the packed forwards and the fused serving path, and time the
@@ -2426,6 +2449,7 @@ def run_train(torch, flickr, adjs) -> dict:
     import math
 
     import numpy as np
+    from repro_torch.core import bspmm as bspmm_core
     from repro_torch.kernels import ops
     from repro_torch.models import gnn
     from repro_torch.serve import GraphStore
@@ -2506,8 +2530,12 @@ def run_train(torch, flickr, adjs) -> dict:
             raise AssertionError(f"phase 13 {name}: logits not finite of "
                                  f"shape ({n_fl}, {n_cls})")
         cpu_stats = tuple((mu.cpu(), sd.cpu()) for mu, sd in stats)
-        want = model.to("cpu")(x.cpu(), *[adjs[k].to("cpu") for k in kinds],
-                               bn_stats=cpu_stats)
+        # the fp aggregation in the card's order: other orders give BN'd
+        # values near 0 other signs, and trained weights differ each run
+        with bspmm_core.override_backends(fp=walk_fp):
+            want = model.to("cpu")(x.cpu(),
+                                   *[adjs[k].to("cpu") for k in kinds],
+                                   bn_stats=cpu_stats)
         model.to(dev)
         agree(f"phase 13 {name} vs the CPU", logits.cpu().numpy(),
               want.numpy())

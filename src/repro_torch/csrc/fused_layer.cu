@@ -17,8 +17,8 @@
 //
 // Aggregation needs every row's transform first, so fused_layer_kernel is
 // launched cooperatively (all blocks resident, grid sized from the
-// occupancy with the launch's dynamic shared memory) and runs three
-// grid-stride phases separated by grid-wide barriers:
+// occupancy with the launch's dynamic shared memory) and runs two
+// grid-stride phases separated by one grid-wide barrier:
 //   1. transform: one block per row tile.
 //      BMM.FBB (gcn_bin_l1): a register-tiled fp32 GEMM of 192 rows x 64
 //      columns a tile pass, 12 x 4 outputs a thread. Chunks of 32 features
@@ -36,21 +36,30 @@
 //      block (in chunks of 32 words and 64 columns past that) and
 //      multiplied with the mma tile of xnor.cuh (b1 tensor-core AND-popc),
 //      then scaled as (count * row scale) * weight scale [* column scale].
-//   2. aggregate: one warp per work item (at most `chunk` groups of one
-//      tile-row, from item_ptr), walking its groups in order (walk.cuh) and
-//      storing the item's partial sums; the counts walk takes up to 4 words
-//      of y a pass, with the register bit transpose (walk::bits).
-//   3. combine: one warp per tile-row adds its items' partials in item order,
-//      then applies the row scale, the self branch and the ReLU, or the sign
-//      (with the tail bits past the width cleared).
+//      The phase also zeroes the heavy rows' tickets; the barrier orders
+//      them before the first item.
+//   2. aggregate and store: the task walk of tasks.cuh over the one matrix,
+//      a warp a task of the list built once a plan (kernels/fused_layer.py
+//      pair_items). A light tile-row (at most `chunk` groups) walks its
+//      groups (walk.cuh; the counts walk takes up to 4 words of y a pass,
+//      with the register bit transpose) and applies the epilogue in
+//      registers: the row scale, the self branch and the ReLU, or the sign
+//      (with the tail bits past the width cleared). Each item of a heavy
+//      row stores its partial sums to scratch (sized by the list's heavy
+//      count); the warp with the row's last ticket adds them in item order
+//      and stores the row. The association is that of the two-barrier
+//      kernel it replaced (items of `chunk` groups from the row's first,
+//      each summed from 0, the row from +0.0f in item order), so the
+//      outputs are bit-equal to it.
 // With aggregate = 0 the kernel stops after phase 1: the sharded steps'
 // transform alone, the rows the executors exchange, written without the
 // column scale (and, with w_s, the self branch's product to ys). Their pair
-// step then aggregates it with fused_pair.cu. bn_rcp takes BN as
+// step then aggregates it with fused_pair.cu, the same task walk over an
+// intra and a halo matrix. bn_rcp takes BN as
 // (x - mu) * (1 / sd), the executors' apply_bn, where the single-host kinds
 // divide; fc takes either form.
 // Every sum has a fixed order, so two runs give the same bits. The scratch
-// (transform output, partials) comes from the caller's torch.empty.
+// (transform output, partials, tickets) comes from the caller's torch.empty.
 // Bound on H100: BMM.FBB is 2 F H fp32 operations a row (89,252 x 500 x 64
 // fma at the serve bucket, 0.085 ms at 67 TFLOP/s, against 0.053 ms for
 // the 178.5 MB of x), so gcn_bin_l1 is bound by operations; the BBF kinds
@@ -62,6 +71,7 @@
 #include <stdint.h>
 
 #include "launch.cuh"
+#include "tasks.cuh"
 #include "walk.cuh"
 #include "xnor.cuh"
 
@@ -73,7 +83,6 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxWords = 128;  // input width <= 4096 features
 constexpr int kMaxChunks = 8;   // output width <= 256
-constexpr int kTile = walk::kTile;
 constexpr unsigned kFull = walk::kFull;
 // BMM.FBB tile: 16 x 16 threads, 12 rows x 4 columns each (8 rows: 4-8%
 // slower at the serve bucket, tools/xform_variants.py)
@@ -113,16 +122,21 @@ struct Params {
   const int32_t* grp_ptr;
   const int32_t* tiles;
   const int32_t* col_idx;
-  const int32_t* item_ptr;
   const float* row_scale;
   const float* col_scale;
   int n_tile_rows;
   long long n_rows;
   int chunk;
+  // (n_tasks, 2): (tile-row, -1) for a light row, (tile-row, k) for item k
+  // of a heavy row; the n_part heavy tasks first (tasks.cuh)
+  const int32_t* tasks;
+  int32_t* row_done;  // (n_tile_rows) tickets, zeroed in phase 1
+  int n_tasks;
+  int n_part;
   // scratch and output
   void* y;      // (n_in, ho) float, or (n_in, ceil(ho/32)) words when fbb
   float* ys;    // (n_in, ho) self branch
-  void* part;   // (items, 4, width) partial sums
+  void* part;   // (n_part, 4, width) partial sums
   void* out;    // (n_rows, ho) float, or (n_rows, ceil(ho/32)) words
   // the fp aggregation's lane layout (walk::FpLanes), from the wrapper
   int fp_sub;
@@ -500,165 +514,69 @@ __device__ void transform_bbf(const Params& p, uint32_t* smem) {
   }
 }
 
-// Phase 2's adjacency: its arrays, its work items and y, the rows its
-// groups gather.
-struct Walked {
-  const int32_t* grp_ptr;
-  const int32_t* tiles;
-  const int32_t* col_idx;
-  const int32_t* item_ptr;
-  const void* x;
-  long long n_x;
+// The kernel's parameter: the launch's Params and, for phase 2, the walk
+// over the one matrix (tasks.cuh), read from the parameter space where they
+// are used.
+struct Args {
+  Params p;
+  tasks::Work w;
 };
-
-// Work item `it` of `a`: tile-row `row` with item_ptr[row] <= it <
-// item_ptr[row + 1], groups [g0, g1).
-__device__ __forceinline__ void find_item(const Walked& a, int n_tile_rows,
-                                          int chunk, long long it, int* row,
-                                          int* g0, int* g1) {
-  int lo = 0, hi = n_tile_rows;
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) >> 1;
-    if (a.item_ptr[mid] <= it) lo = mid; else hi = mid;
-  }
-  *row = lo;
-  *g0 = a.grp_ptr[lo] + (int)(it - a.item_ptr[lo]) * chunk;
-  *g1 = min(*g0 + chunk, a.grp_ptr[lo + 1]);
-}
-
-// Phase 2 for one counts work item: its partial sums, every word of the
-// walked rows in passes of kW words (walk::bits), to `part`.
-template <int kW, bool kS2>
-__device__ __forceinline__ void aggregate_counts(const Walked& a, int32_t* part,
-                                                 int g0, int g1, int wh,
-                                                 int lane) {
-  const uint32_t* y = (const uint32_t*)a.x;
-  const bool vec = wh % kW == 0 && (uintptr_t)y % (4 * kW) == 0;
-  for (int w = 0; w < wh; w += kW) {
-    const int nw = min(kW, wh - w);
-    int acc[kTile][kW] = {};
-    walk::bits<kW, kS2, true>(a.tiles, a.col_idx, y, g0, g1, w, nw, wh,
-                              vec && nw == kW, a.n_x, lane, acc);
-#pragma unroll
-    for (int j = 0; j < kW; ++j) {
-      if (j >= nw) break;
-#pragma unroll
-      for (int i = 0; i < kTile; ++i)
-        part[i * wh * 32 + (w + j) * 32 + lane] = acc[i][j];
-    }
-  }
-}
-
-// Phase 2 for one fp work item: its partial sums, every column, to `part`.
-template <int kSub, int kCols, bool kVec>
-__device__ __forceinline__ void aggregate_fp(const Walked& a, int ho,
-                                             float* part, int g0, int g1,
-                                             int lane, int2* hits) {
-  using L = walk::FpLanes<kSub, kCols, kVec>;
-  for (int c0 = 0; c0 < ho; c0 += L::kPass) {
-    float acc[kTile][kCols] = {};
-    walk::fp<kSub, kCols, kVec, true>(a.tiles, a.col_idx, (const float*)a.x,
-                                      g0, g1, c0, ho, ho, a.n_x, lane, hits,
-                                      acc);
-    walk::fold<kSub, kCols>(acc);
-    walk::store<kSub, kCols, kVec>(part, ho, c0, ho, lane, acc);
-  }
-}
 
 // kRcp: BN as (x - mu) * sd, sd holding 1 / sd (p.bn_rcp). A template
 // argument, so that the single-host kinds run an instantiation without it
 // (as a runtime choice they read 2-5% slower in tools/xform_step0.py).
-template <bool kRcp>
-__global__ void __launch_bounds__(kThreads, 2) fused_layer_kernel(Params p) {
+// kAgg: the launch holds an adjacency (p.grp_ptr); the sharded steps'
+// transform alone (none) runs an instance without phase 2, whose registers
+// the task walk does not share (7e's step read 5% slower with one instance
+// in tools/pair_step0.py). With aggregate = 0 the other instance also stops
+// after phase 1.
+template <bool kRcp, bool kAgg>
+__global__ void __launch_bounds__(kThreads, 2)
+    fused_layer_kernel(const __grid_constant__ Args a) {
+  const Params& p = a.p;
   extern __shared__ uint4 s_tile[];
   __shared__ int2 s_hits[kWarps][walk::kHitsPerLoad];
   cg::grid_group grid = cg::this_grid();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long gw = (long long)blockIdx.x * kWarps + warp;
   const long long n_warps = (long long)gridDim.x * kWarps;
-  const int wh = (p.ho + 31) / 32;
 
+  // 1. transform; the heavy rows' tickets zeroed (each row's first item),
+  // ordered before their first use by the grid barrier
+  if (kAgg && p.aggregate)
+    for (long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+         t < p.n_part; t += (long long)gridDim.x * kThreads)
+      if (p.tasks[2 * t + 1] == 0) p.row_done[p.tasks[2 * t]] = 0;
   if (p.fbb)
     transform_fbb<kRcp>(p, (float*)s_tile);
   else
     transform_bbf<kRcp>(p, (uint32_t*)s_tile);
-  if (!p.aggregate) return;
+  if (!kAgg || !p.aggregate) return;
   grid.sync();
 
-  // 2. aggregate: partial sums per work item
-  const int width = p.fbb ? wh * 32 : p.ho;
-  const Walked a = {p.grp_ptr, p.tiles, p.col_idx, p.item_ptr, p.y, p.n_in};
-  const long long n_items = p.item_ptr[p.n_tile_rows];
-  for (long long it = gw; it < n_items; it += n_warps) {
-    int row, g0, g1;
-    find_item(a, p.n_tile_rows, p.chunk, it, &row, &g0, &g1);
+  // 2. aggregate and store: a warp a task (tasks.cuh)
+  const tasks::Work& w = a.w;
+  for (long long t = gw; t < p.n_tasks; t += n_warps) {
+    const int tr = p.tasks[2 * t], k = p.tasks[2 * t + 1];
     if (p.fbb) {
-      int32_t* part = (int32_t*)p.part + it * kTile * width;
-#define AGGREGATE(W)                                                    \
+#define TASK(W)                                                         \
   if (p.s2)                                                             \
-    aggregate_counts<W, true>(a, part, g0, g1, wh, lane);               \
+    tasks::bits_task<false, W, true>(w, t, tr, k, lane);                \
   else                                                                  \
-    aggregate_counts<W, false>(a, part, g0, g1, wh, lane);
-      switch (walk::bits_pass(wh)) {
-        case 1: AGGREGATE(1) break;
-        case 2: AGGREGATE(2) break;
-        default: AGGREGATE(4)
+    tasks::bits_task<false, W, false>(w, t, tr, k, lane);
+      switch (walk::bits_pass((p.ho + 31) / 32)) {
+        case 1: TASK(1) break;
+        case 2: TASK(2) break;
+        default: TASK(4)
       }
-#undef AGGREGATE
+#undef TASK
     } else {
-      float* part = (float*)p.part + it * kTile * width;
-#define AGGREGATE(S, C, V)                                              \
+#define TASK(S, C, V)                                                   \
   if (p.fp_sub == S && p.fp_cols == C && p.fp_vec == (V))               \
-    aggregate_fp<S, C, V>(a, p.ho, part, g0, g1, lane, s_hits[warp]);   \
+    tasks::fp_task<false, S, C, V>(w, t, tr, k, lane, s_hits[warp]);    \
   else
-      WALK_FP_LAYOUTS(AGGREGATE) {}
-#undef AGGREGATE
-    }
-  }
-  grid.sync();
-
-  // 3. combine: per tile-row, the items' partials added in item order;
-  // then the epilogue
-  for (long long tr = gw; tr < p.n_tile_rows; tr += n_warps) {
-    const int i0 = p.item_ptr[tr], i1 = p.item_ptr[tr + 1];
-    const long long row0 = tr * kTile;
-    if (p.fbb) {
-      for (int w = 0; w < wh; ++w) {
-        int acc[kTile] = {0, 0, 0, 0};
-        for (long long it = i0; it < i1; ++it) {
-          const int32_t* part = (const int32_t*)p.part + it * kTile * width;
-#pragma unroll
-          for (int i = 0; i < kTile; ++i) acc[i] += __ldcg(part + i * width + w * 32 + lane);
-        }
-        const uint32_t keep = (w == wh - 1 && p.ho % 32) ? (1u << (p.ho % 32)) - 1u : kFull;
-#pragma unroll
-        for (int i = 0; i < kTile; ++i) {
-          const uint32_t word = walk::sign_word(acc[i], keep);
-          if (lane == 0 && row0 + i < p.n_rows)
-            ((uint32_t*)p.out)[(row0 + i) * wh + w] = word;
-        }
-      }
-    } else {
-      for (int c0 = 0; c0 < p.ho; c0 += 32) {
-        const int col = c0 + lane;
-        if (col >= p.ho) break;
-        float acc[kTile] = {0.f, 0.f, 0.f, 0.f};
-        for (long long it = i0; it < i1; ++it) {
-          const float* part = (const float*)p.part + it * kTile * width;
-#pragma unroll
-          for (int i = 0; i < kTile; ++i) acc[i] += __ldcg(part + i * width + col);
-        }
-#pragma unroll
-        for (int i = 0; i < kTile; ++i) {
-          const long long row = row0 + i;
-          if (row >= p.n_rows) break;
-          float v = acc[i];
-          if (p.row_scale) v = v * p.row_scale[row];
-          if (p.ys) v = __ldcg(p.ys + row * p.ho + col) + v;
-          if (p.relu) v = fmaxf(v, 0.f);
-          ((float*)p.out)[row * p.ho + col] = v;
-        }
-      }
+      WALK_FP_LAYOUTS(TASK) {}
+#undef TASK
     }
   }
 }
@@ -784,12 +702,17 @@ __global__ void __launch_bounds__(kFcThreads) fused_fc_kernel(FcParams p) {
 
 // Launch one layer cooperatively on `stream`: the transform's dynamic shared
 // memory, and a grid of as many blocks as are resident at once with it,
-// capped by the transform's row tiles and by phase 3's tile-rows (a warp
-// each). A launch the card refuses returns its error.
+// capped by the transform's row tiles and by the tasks (a warp each). A
+// launch the card refuses returns its error.
 extern "C" int fused_layer(const void* params, void* stream) {
   Params p = *(const Params*)params;
   if (p.wk > kMaxWords || (p.ho + 31) / 32 > kMaxChunks ||
       p.wk != (p.f + 31) / 32)
+    return (int)cudaErrorInvalidValue;
+  if (p.aggregate &&
+      (!p.grp_ptr || p.chunk <= 0 || p.n_part < 0 || p.n_part > p.n_tasks ||
+       (p.n_tasks > 0 && !p.tasks) ||
+       (p.n_part > 0 && (!p.row_done || !p.part))))
     return (int)cudaErrorInvalidValue;
   if (p.aggregate && !p.fbb &&
       walk::with_fp_layout(p.fp_sub, p.fp_cols, p.fp_vec,
@@ -797,20 +720,29 @@ extern "C" int fused_layer(const void* params, void* stream) {
     return (int)cudaErrorInvalidValue;
   const int smem = transform_smem(p.f, p.fbb, p.w_s != nullptr);
   int resident = 0;
-  using Kernel = void (*)(Params);
-  const Kernel kernel = p.bn_rcp ? fused_layer_kernel<true>
-                                 : fused_layer_kernel<false>;
+  using Kernel = void (*)(Args);
+  const Kernel kernel =
+      p.grp_ptr ? (p.bn_rcp ? fused_layer_kernel<true, true>
+                            : fused_layer_kernel<false, true>)
+                : (p.bn_rcp ? fused_layer_kernel<true, false>
+                            : fused_layer_kernel<false, false>);
   cudaError_t e = launch::allow_smem(kernel, smem);
   if (e == cudaSuccess)
     e = launch::resident_blocks(kernel, kThreads, smem, &resident);
   if (e != cudaSuccess) return (int)e;
   const int tile_rows = p.fbb ? kFbbRows : kBbfRows;
   long long want = (p.n_in + tile_rows - 1) / tile_rows;
-  const long long rows = ((long long)p.n_tile_rows + kWarps - 1) / kWarps;
-  if (rows > want) want = rows;
+  const long long task_blocks = ((long long)p.n_tasks + kWarps - 1) / kWarps;
+  if (p.aggregate && task_blocks > want) want = task_blocks;
   long long blocks = want < resident ? want : resident;
   if (blocks < 1) blocks = 1;
-  void* args[] = {&p};
+  // the walk over y as the transform writes it (the column scale in it)
+  Args a = {p,
+            {{p.grp_ptr, p.tiles, p.col_idx, nullptr, p.y, p.n_in},
+             {},
+             p.row_scale, p.ys, p.out, p.part, p.row_done, p.n_rows, p.ho,
+             p.chunk, p.relu}};
+  void* args[] = {&a};
   e = cudaLaunchCooperativeKernel((const void*)kernel, dim3((unsigned)blocks),
                                   dim3(kThreads), args, (size_t)smem,
                                   (cudaStream_t)stream);
@@ -823,7 +755,7 @@ extern "C" int fused_layer(const void* params, void* stream) {
 // features in BMM.FBB (fbb) or BMM.BBF (with the self branch's weights or
 // without): out[0..3]. One build serves every kind and layout.
 extern "C" int fused_layer_attrs(int f, int fbb, int self_branch, int* out) {
-  return (int)launch::attributes(fused_layer_kernel<false>, kThreads,
+  return (int)launch::attributes(fused_layer_kernel<false, true>, kThreads,
                                  transform_smem(f, fbb, self_branch), out);
 }
 

@@ -16,28 +16,21 @@
 //   fp:    (sum_intra(y * col_scale) + sum_halo(rem * h_col_scale))
 //          * row_scale [+ ys] [-> ReLU]
 //   words: sign words of the trinary popc counts of both, the tail cleared.
-// Association (fused_layer.cu's phases 2-3 extended to a second matrix,
-// so a row without halo edges is bit-equal to the one-launch kind): a
-// tile-row is cut into items of `chunk` groups counted from its first
-// group, at least one each, in the intra matrix and in the halo matrix;
-// each item's partial sums start from 0 (walk::fp and fold, or
-// walk::bits); the row's sum starts at +0.0f and adds its intra items in
-// order, then the sum of its halo items (from +0.0f, in order); then the
-// row scale once, the self add ys + v and the ReLU, each one rounded
-// operation. Each column scale is applied at the gather, one rounded
-// product of the gathered value, the product the one-launch kind's
-// transform rounds. Counts are integers: any order is exact.
-//
-// Work split: a warp per task, from a task list built once per plan
-// (kernels/fused_layer.py pair_items). A tile-row of one intra item and at
-// most one halo item (nearly every row of a sharded plan) is one task: its
-// warp walks both in turn and applies the epilogue in registers, with no
-// scratch traffic. Every item of any other row is a task of its own; these
-// come first in the list, so the long rows start first, and each writes its
-// partial sums to scratch; the warp that takes the row's last ticket
-// (walk::last_arrival) adds them in item order and stores the row. The
-// launch is an ordinary one, a block per 8 tasks: no grid-wide barrier, no
-// dynamic shared memory, and the walks' own launch bounds.
+// Association and work split: the task walk of tasks.cuh (kHalo), which
+// the single-host kinds of fused_layer.cu run over their one matrix, so a
+// row without halo edges is bit-equal to the one-launch kind. A tile-row is
+// cut into items of `chunk` groups counted from its first group, in each
+// matrix; the row's sum adds its intra items in order, then the sum of its
+// halo items; then the row scale once, the self add and the ReLU. Each
+// column scale is applied at the gather, one rounded product of the
+// gathered value, the product the one-launch kind's transform rounds.
+// Counts are integers: any order is exact. A warp takes a task of the list
+// built once a plan (kernels/fused_layer.py pair_items): a light row (one
+// intra item and at most one halo item, nearly every row of a sharded
+// plan) walks both in turn with the epilogue in registers; each item of a
+// heavy row writes partial sums to scratch and the row's last warp adds
+// them. The launch is an ordinary one, a block per 8 tasks: no grid-wide
+// barrier, no dynamic shared memory, and the walks' own launch bounds.
 //
 // Bound on H100: bytes (the two matrices' groups, the gathered rows of y and
 // rem, the scales, ys and the output). A light row is a chain of dependent
@@ -53,13 +46,13 @@
 #include <stdint.h>
 
 #include "launch.cuh"
+#include "tasks.cuh"
 #include "walk.cuh"
 
 namespace {
 
 constexpr int kWarps = walk::kBlockWarps;
 constexpr int kThreads = kWarps * 32;
-constexpr int kTile = walk::kTile;
 
 struct Params {
   // intra adjacency: the shard's tile-rows x its own rows (y)
@@ -98,242 +91,43 @@ struct Params {
   int fp_vec;
 };
 
-// Items of a tile-row with groups [g0, g1): at least one.
-__device__ __forceinline__ int n_items(int g0, int g1, int chunk) {
-  return max(1, (g1 - g0 + chunk - 1) / chunk);
-}
-
-// One adjacency as a walk reads it.
-struct Side {
-  const int32_t* grp_ptr;
-  const int32_t* tiles;
-  const int32_t* col_idx;
-  const float* col_scale;
-  const void* x;
-  long long n_x;
+// The kernels' parameter: the launch's walk and its task list, read from
+// the parameter space where they are used.
+struct Args {
+  tasks::Work w;
+  const int32_t* tasks;
+  int n_tasks;
 };
 
-__device__ __forceinline__ Side intra_side(const Params& p) {
-  return {p.grp_ptr, p.tiles, p.col_idx, p.col_scale, p.y, p.n_y};
-}
-
-__device__ __forceinline__ Side halo_side(const Params& p) {
-  return {p.h_grp_ptr, p.h_tiles, p.h_col_idx, p.h_col_scale, p.rem, p.n_rem};
-}
-
-// The fp epilogue of one output: the row scale, the self branch, the ReLU.
-__device__ __forceinline__ void put_fp(const Params& p, long long row, int col,
-                                       float v) {
-  if (p.row_scale) v = __fmul_rn(v, p.row_scale[row]);
-  if (p.ys) v = __fadd_rn(p.ys[row * p.ho + col], v);
-  if (p.relu) v = fmaxf(v, 0.f);
-  ((float*)p.out)[row * p.ho + col] = v;
-}
-
-// ---- fp --------------------------------------------------------------------
-
-// The raw sums of groups [g0, g1) of `s`, columns [c0, c0 + kPass), folded
-// into lanes 0 .. kSub-1.
-template <int kSub, int kCols, bool kVec>
-__device__ __forceinline__ void fp_walk(const Side& s, int ho, int g0, int g1,
-                                        int c0, int lane, int2* hits,
-                                        float acc[kTile][kCols]) {
-#pragma unroll
-  for (int i = 0; i < kTile; ++i)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
-  walk::fp<kSub, kCols, kVec, false, true>(s.tiles, s.col_idx,
-                                           (const float*)s.x, g0, g1, c0, ho,
-                                           ho, s.n_x, lane, hits, acc,
-                                           s.col_scale);
-  walk::fold<kSub, kCols>(acc);
-}
-
-// A light tile-row: its one intra item and its one halo item in turn, the
-// sums and the epilogue in registers.
-template <int kSub, int kCols, bool kVec>
-__device__ void fp_light(const Params& p, int tr, int lane, int2* hits) {
-  using L = walk::FpLanes<kSub, kCols, kVec>;
-  const Side a = intra_side(p), h = halo_side(p);
-  const int g0 = p.grp_ptr[tr], g1 = p.grp_ptr[tr + 1];
-  const int h0 = p.h_grp_ptr[tr], h1 = p.h_grp_ptr[tr + 1];
-  for (int c0 = 0; c0 < p.ho; c0 += L::kPass) {
-    float acc[kTile][kCols], hacc[kTile][kCols];
-    fp_walk<kSub, kCols, kVec>(a, p.ho, g0, g1, c0, lane, hits, acc);
-    fp_walk<kSub, kCols, kVec>(h, p.ho, h0, h1, c0, lane, hits, hacc);
-    if (lane < kSub) {
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const int col = c0 + L::col(lane, c);
-        if (col >= p.ho) continue;
-#pragma unroll
-        for (int i = 0; i < kTile; ++i) {
-          const long long row = (long long)tr * kTile + i;
-          if (row >= p.n_rows) break;
-          const float v = __fadd_rn(0.f, acc[i][c]);
-          put_fp(p, row, col, __fadd_rn(v, __fadd_rn(0.f, hacc[i][c])));
-        }
-      }
-    }
-  }
-}
-
-// Item k of heavy tile-row tr (task t): its partial sums to scratch slot t;
-// the last of the row's items to arrive adds the row's slots t - k ... in
-// item order and stores the row.
-template <int kSub, int kCols, bool kVec>
-__device__ void fp_heavy(const Params& p, long long t, int tr, int k, int lane,
-                         int2* hits) {
-  using L = walk::FpLanes<kSub, kCols, kVec>;
-  const int gi0 = p.grp_ptr[tr], gi1 = p.grp_ptr[tr + 1];
-  const int gh0 = p.h_grp_ptr[tr], gh1 = p.h_grp_ptr[tr + 1];
-  const int n_i = n_items(gi0, gi1, p.chunk), n_h = n_items(gh0, gh1, p.chunk);
-  const bool in_halo = k >= n_i;
-  const Side s = in_halo ? halo_side(p) : intra_side(p);
-  const int g0 = (in_halo ? gh0 : gi0) + (in_halo ? k - n_i : k) * p.chunk;
-  const int g1 = min(g0 + p.chunk, in_halo ? gh1 : gi1);
-  const size_t slot = (size_t)kTile * p.ho;
-  float* part = (float*)p.part;
-  for (int c0 = 0; c0 < p.ho; c0 += L::kPass) {
-    float acc[kTile][kCols];
-    fp_walk<kSub, kCols, kVec>(s, p.ho, g0, g1, c0, lane, hits, acc);
-    walk::store<kSub, kCols, kVec>(part + (size_t)t * slot, p.ho, c0, p.ho,
-                                   lane, acc);
-  }
-  if (!walk::last_arrival(p.row_done + tr, n_i + n_h, lane)) return;
-  const float* first = part + (size_t)(t - k) * slot;
-  for (int col = lane; col < p.ho; col += 32) {
-    float acc[kTile] = {0.f, 0.f, 0.f, 0.f}, hacc[kTile] = {0.f, 0.f, 0.f, 0.f};
-    for (int it = 0; it < n_i; ++it) {
-      const float* q = first + (size_t)it * slot + col;
-#pragma unroll
-      for (int i = 0; i < kTile; ++i)
-        acc[i] = __fadd_rn(acc[i], __ldcg(q + (size_t)i * p.ho));
-    }
-    for (int it = n_i; it < n_i + n_h; ++it) {
-      const float* q = first + (size_t)it * slot + col;
-#pragma unroll
-      for (int i = 0; i < kTile; ++i)
-        hacc[i] = __fadd_rn(hacc[i], __ldcg(q + (size_t)i * p.ho));
-    }
-#pragma unroll
-    for (int i = 0; i < kTile; ++i) {
-      const long long row = (long long)tr * kTile + i;
-      if (row >= p.n_rows) break;
-      put_fp(p, row, col, __fadd_rn(acc[i], hacc[i]));
-    }
-  }
+Args args_of(const Params& p) {
+  return {{{p.grp_ptr, p.tiles, p.col_idx, p.col_scale, p.y, p.n_y},
+           {p.h_grp_ptr, p.h_tiles, p.h_col_idx, p.h_col_scale, p.rem,
+            p.n_rem},
+           p.row_scale, p.ys, p.out, p.part, p.row_done, p.n_rows, p.ho,
+           p.chunk, p.relu},
+          p.tasks, p.n_tasks};
 }
 
 template <int kSub, int kCols, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-    fused_pair_fp_kernel(const __grid_constant__ Params p) {
+    fused_pair_fp_kernel(const __grid_constant__ Args a) {
   __shared__ int2 s_hits[kWarps][walk::kHitsPerLoad];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long t = (long long)blockIdx.x * kWarps + warp;
-  if (t >= p.n_tasks) return;
-  const int tr = p.tasks[2 * t], k = p.tasks[2 * t + 1];
-  if (k < 0)
-    fp_light<kSub, kCols, kVec>(p, tr, lane, s_hits[warp]);
-  else
-    fp_heavy<kSub, kCols, kVec>(p, t, tr, k, lane, s_hits[warp]);
-}
-
-// ---- counts ----------------------------------------------------------------
-
-// Sign words [w, w + nw) of the four rows of tile-row tr from the counts.
-template <int kW>
-__device__ __forceinline__ void put_words(const Params& p, int tr, int w,
-                                          int nw, int lane,
-                                          const int acc[kTile][kW]) {
-  const int wh = (p.ho + 31) / 32;
-#pragma unroll
-  for (int j = 0; j < kW; ++j) {
-    if (j >= nw) break;
-    const uint32_t keep = walk::tail_keep(w + j, p.ho);
-#pragma unroll
-    for (int i = 0; i < kTile; ++i) {
-      const uint32_t word = walk::sign_word(acc[i][j], keep);
-      const long long row = (long long)tr * kTile + i;
-      if (lane == 0 && row < p.n_rows)
-        ((uint32_t*)p.out)[row * wh + w + j] = word;
-    }
-  }
-}
-
-template <int kW, bool kS2>
-__device__ __forceinline__ void bits_walk(const Side& s, int g0, int g1, int w,
-                                          int nw, int wh, int lane,
-                                          int acc[kTile][kW]) {
-  const uint32_t* x = (const uint32_t*)s.x;
-  const bool vec = nw == kW && wh % kW == 0 && (uintptr_t)x % (4 * kW) == 0;
-  walk::bits<kW, kS2>(s.tiles, s.col_idx, x, g0, g1, w, nw, wh, vec, s.n_x,
-                      lane, acc);
-}
-
-template <int kW, bool kS2>
-__device__ void bits_light(const Params& p, int tr, int lane) {
-  const int wh = (p.ho + 31) / 32;
-  const Side a = intra_side(p), h = halo_side(p);
-  const int g0 = p.grp_ptr[tr], g1 = p.grp_ptr[tr + 1];
-  const int h0 = p.h_grp_ptr[tr], h1 = p.h_grp_ptr[tr + 1];
-  for (int w = 0; w < wh; w += kW) {
-    const int nw = min(kW, wh - w);
-    int acc[kTile][kW] = {};
-    bits_walk<kW, kS2>(a, g0, g1, w, nw, wh, lane, acc);
-    bits_walk<kW, kS2>(h, h0, h1, w, nw, wh, lane, acc);
-    put_words<kW>(p, tr, w, nw, lane, acc);
-  }
-}
-
-template <int kW, bool kS2>
-__device__ void bits_heavy(const Params& p, long long t, int tr, int k,
-                           int lane) {
-  const int wh = (p.ho + 31) / 32, width = wh * 32;
-  const int gi0 = p.grp_ptr[tr], gi1 = p.grp_ptr[tr + 1];
-  const int gh0 = p.h_grp_ptr[tr], gh1 = p.h_grp_ptr[tr + 1];
-  const int n_i = n_items(gi0, gi1, p.chunk), n_h = n_items(gh0, gh1, p.chunk);
-  const bool in_halo = k >= n_i;
-  const Side s = in_halo ? halo_side(p) : intra_side(p);
-  const int g0 = (in_halo ? gh0 : gi0) + (in_halo ? k - n_i : k) * p.chunk;
-  const int g1 = min(g0 + p.chunk, in_halo ? gh1 : gi1);
-  const size_t slot = (size_t)kTile * width;
-  int32_t* part = (int32_t*)p.part;
-  for (int w = 0; w < wh; w += kW) {
-    const int nw = min(kW, wh - w);
-    int acc[kTile][kW] = {};
-    bits_walk<kW, kS2>(s, g0, g1, w, nw, wh, lane, acc);
-#pragma unroll
-    for (int j = 0; j < kW; ++j) {
-      if (j >= nw) break;
-#pragma unroll
-      for (int i = 0; i < kTile; ++i)
-        part[t * slot + i * width + (w + j) * 32 + lane] = acc[i][j];
-    }
-  }
-  if (!walk::last_arrival(p.row_done + tr, n_i + n_h, lane)) return;
-  const int32_t* first = part + (size_t)(t - k) * slot;
-  for (int w = 0; w < wh; ++w) {
-    int acc[kTile][1] = {};
-    for (int it = 0; it < n_i + n_h; ++it)
-#pragma unroll
-      for (int i = 0; i < kTile; ++i)
-        acc[i][0] += __ldcg(first + it * slot + i * width + w * 32 + lane);
-    put_words<1>(p, tr, w, 1, lane, acc);
-  }
+  if (t >= a.n_tasks) return;
+  tasks::fp_task<true, kSub, kCols, kVec>(a.w, t, a.tasks[2 * t],
+                                          a.tasks[2 * t + 1], lane,
+                                          s_hits[warp]);
 }
 
 template <int kW, bool kS2>
 __global__ void __launch_bounds__(kThreads, walk::bits_min_blocks(kW))
-    fused_pair_bits_kernel(const __grid_constant__ Params p) {
+    fused_pair_bits_kernel(const __grid_constant__ Args a) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long t = (long long)blockIdx.x * kWarps + warp;
-  if (t >= p.n_tasks) return;
-  const int tr = p.tasks[2 * t], k = p.tasks[2 * t + 1];
-  if (k < 0)
-    bits_light<kW, kS2>(p, tr, lane);
-  else
-    bits_heavy<kW, kS2>(p, t, tr, k, lane);
+  if (t >= a.n_tasks) return;
+  tasks::bits_task<true, kW, kS2>(a.w, t, a.tasks[2 * t], a.tasks[2 * t + 1],
+                                  lane);
 }
 
 }  // namespace
@@ -352,8 +146,9 @@ extern "C" int fused_pair(const void* params, void* stream) {
   }
   const cudaStream_t s = (cudaStream_t)stream;
   const unsigned blocks = (unsigned)((p.n_tasks + kWarps - 1) / kWarps);
+  const Args a = args_of(p);
   auto run = [&](auto kernel) {
-    kernel<<<blocks, kThreads, 0, s>>>(p);
+    kernel<<<blocks, kThreads, 0, s>>>(a);
     return cudaGetLastError();
   };
   if (p.fbb)

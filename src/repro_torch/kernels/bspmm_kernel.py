@@ -132,6 +132,86 @@ def bspmm_fp_plain(adj: FRDCMatrix, x: torch.Tensor) -> torch.Tensor:
     return out.reshape(-1, f)
 
 
+def _segment_rank(key: torch.Tensor) -> torch.Tensor:
+    """Rank of each entry among the entries of equal ``key`` before it."""
+    order = torch.sort(key, stable=True).indices
+    _, counts = torch.unique_consecutive(key[order], return_counts=True)
+    first = torch.repeat_interleave(torch.cumsum(counts, 0) - counts, counts)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(order.numel(), device=key.device) - first
+    return rank
+
+
+def bspmm_fp_walk_plain(adj: FRDCMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Plain mirror of the 1D ``bspmm_fp`` kernel's summation order, bit for
+    bit on the same float32 inputs (``csrc/walk.cuh``), where
+    :func:`bspmm_fp_plain` sums in ``index_add_``'s order. Raw (no scales);
+    returns (R4, F).
+
+    The kernel's order: ``split_block`` with ``GROUPS_PER_ITEM``. A light
+    tile-row (at most that many groups) is one walk; a heavy one a walk per
+    chunk item in group space (:func:`heavy_items`). A walk takes its
+    groups in batches of 4 from its first group; a batch's hits (a
+    neighbour column with a row bit set, below x's row count) are listed in
+    ascending group and bit order (bit 4 t + j: column j of tile t), and
+    hit e goes to sub-warp ``e % (32 / sub)`` of :func:`fp_layout` (one
+    sub-warp above 16 columns), which adds its hits in list order from 0.
+    ``fold`` adds the sub-warps in its tree (s += s + S/2, then S/4, ...,
+    1). A light row stores the folded sums; a heavy row adds its items'
+    from 0 in chunk order."""
+    f = x.shape[1]
+    dev = x.device
+    n_sub = WORD // fp_layout(f, f, 0).sub
+    gp = adj.grp_ptr.long()
+    out = torch.zeros((adj.n_tile_rows, TILE, f), dtype=x.dtype, device=dev)
+    n_groups = int(gp[-1]) if gp.numel() else 0
+    if n_groups == 0 or f == 0:
+        return out.reshape(-1, f)
+    g = torch.arange(n_groups, device=dev)
+    row = adj.group_row[:n_groups].long()
+    heavy = (gp[1:] - gp[:-1] > GROUPS_PER_ITEM)[row]
+    start = torch.where(
+        heavy, torch.maximum(g // GROUPS_PER_ITEM * GROUPS_PER_ITEM, gp[row]),
+        gp[row])
+    first = g == start
+    walk = torch.cumsum(first.long(), 0) - 1            # walk of each group
+    # the hits of every group, in (group, bit) order: lane 4 t + j takes
+    # column j of tile t, rows i with tile bit 4 i + j
+    lane = torch.arange(WORD, device=dev)
+    tile = adj.tiles[:n_groups].long()[:, lane // TILE]
+    rows = (tile[..., None] >> (TILE * torch.arange(TILE, device=dev)
+                                + (lane % TILE)[:, None])) & 1
+    nbr = adj.col_idx[:n_groups].long()[:, lane // TILE] * TILE + lane % TILE
+    hit = rows.any(-1) & (nbr < x.shape[0])
+    hg = g[:, None].expand(-1, WORD)[hit]
+    batch = walk[hg] * GROUPS_PER_ITEM + (hg - start[hg]) // 4
+    sub = _segment_rank(batch) % n_sub
+    seq = walk[hg] * n_sub + sub                        # a sub-warp's list
+    pos = _segment_rank(seq)
+    acc = torch.zeros((int(walk[-1]) + 1) * n_sub, TILE, f, dtype=x.dtype,
+                      device=dev)
+    bits, vals = rows[hit].bool(), nbr[hit]
+    order = torch.sort(pos, stable=True).indices
+    _, counts = torch.unique_consecutive(pos[order], return_counts=True)
+    for idx in torch.split(order, counts.tolist()) if pos.numel() else ():
+        term = torch.where(bits[idx][:, :, None], x[vals[idx]][:, None, :],
+                           x.new_zeros(()))
+        acc[seq[idx]] = acc[seq[idx]] + term
+    acc = acc.view(-1, n_sub, TILE, f)
+    d = n_sub // 2
+    while d:
+        acc = acc[:, :d] + acc[:, d:2 * d]
+        d //= 2
+    acc = acc[:, 0]
+    w_row, w_heavy = row[first], heavy[first]
+    out[w_row[~w_heavy]] = acc[~w_heavy]
+    k = _segment_rank(w_row)                            # item of its row
+    for j in range(int(k[w_heavy].max()) + 1 if bool(w_heavy.any()) else 0):
+        sel = w_heavy & (k == j)
+        out[w_row[sel]] = out[w_row[sel]] + acc[sel]
+    return out.reshape(-1, f)
+
+
 def _check_adj(adj: FRDCMatrix, x: torch.Tensor, what: str) -> None:
     for name in ("grp_ptr", "group_row", "tiles", "col_idx"):
         t = getattr(adj, name)
@@ -145,20 +225,14 @@ def _check_adj(adj: FRDCMatrix, x: torch.Tensor, what: str) -> None:
 
 
 def work_items(grp_ptr: torch.Tensor) -> torch.Tensor:
-    """item_ptr (R+1,) int32 of the fused layer's aggregation:
-    tile-row r owns work items item_ptr[r] .. item_ptr[r+1], max(1,
-    ceil(groups / GROUPS_PER_ITEM)) of them."""
+    """The aggregating fused kernels' items of each tile-row, (R+1,) int32
+    offsets: tile-row r has items [out[r], out[r+1]), max(1, ceil(groups /
+    GROUPS_PER_ITEM)) of them (``fused_layer.pair_items`` counts them)."""
     per = grp_ptr[1:] - grp_ptr[:-1]
     items = torch.clamp(torch.div(per + GROUPS_PER_ITEM - 1, GROUPS_PER_ITEM,
                                   rounding_mode="floor"), min=1)
     return torch.cat([items.new_zeros(1),
                       torch.cumsum(items, 0, dtype=torch.int32)])
-
-
-def max_items(adj: FRDCMatrix) -> int:
-    """Upper bound of item_ptr[-1] from the shapes alone (no device sync):
-    sizes the fused layer's partial-sum scratch."""
-    return adj.n_tile_rows + -(-adj.n_groups // GROUPS_PER_ITEM)
 
 
 class FpLayout(NamedTuple):

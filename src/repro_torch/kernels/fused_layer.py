@@ -18,11 +18,13 @@ fuses per layer KIND, the four the model families compose
 The three aggregating kinds run one cooperative kernel
 (``fused_layer``): a transform phase (one block per row tile: a
 register-tiled fp32 GEMM for BMM.FBB; quantize_act into a shared tile and
-the b1 tensor-core XNOR-popc tile of ``csrc/xnor.cuh`` for BMM.BBF), a
-grid barrier, per work item partial sums of the aggregation (at most
-``GROUPS_PER_ITEM`` groups of one tile-row), a barrier, and a combine
-phase that adds each tile-row's items in item order. Its launcher sizes
-the shared memory and the grid. :func:`fc` aggregates nothing, so it is
+the b1 tensor-core XNOR-popc tile of ``csrc/xnor.cuh`` for BMM.BBF), one
+grid barrier, then the task walk of ``csrc/tasks.cuh`` over the task list
+of :func:`pair_items` (one matrix): a light tile-row (at most
+``GROUPS_PER_ITEM`` groups) is walked whole with its epilogue in
+registers; each item of a heavy row writes partial sums to scratch, and
+the row's last item adds them in item order. Its launcher sizes the
+shared memory and the grid. :func:`fc` aggregates nothing, so it is
 an ordinary launch of its own over rows (``fused_fc``): a warp quantizes
 a few rows from device memory in the transform's order and multiplies
 their words with the weights, read through the read-only cache; its
@@ -63,7 +65,7 @@ from ..core import bitops
 from ..core.frdc import FRDCMatrix, TILE
 from . import bmm_kernel, build, counting, pack_kernel
 from .bspmm_kernel import GROUPS_PER_ITEM, TRINARY_MODES, WORD, _check_adj, \
-    bspmm_bits_plain, bspmm_fp_plain, fp_layout, max_items, work_items
+    bspmm_bits_plain, bspmm_fp_plain, fp_layout, work_items
 
 if TYPE_CHECKING:   # core.binarize imports kernels.ops, which imports this
     from ..core.binarize import BinTensor
@@ -298,9 +300,10 @@ class _Params(ctypes.Structure):
         ("n_in", _L), ("f", _I), ("wk", _I), ("bn_rcp", _I),
         ("w_a", _P), ("s_a", _P), ("w_s", _P), ("s_s", _P),
         ("ho", _I), ("fbb", _I), ("aggregate", _I), ("s2", _I), ("relu", _I),
-        ("grp_ptr", _P), ("tiles", _P), ("col_idx", _P), ("item_ptr", _P),
+        ("grp_ptr", _P), ("tiles", _P), ("col_idx", _P),
         ("row_scale", _P), ("col_scale", _P),
         ("n_tile_rows", _I), ("n_rows", _L), ("chunk", _I),
+        ("tasks", _P), ("row_done", _P), ("n_tasks", _I), ("n_part", _I),
         ("y", _P), ("ys", _P), ("part", _P), ("out", _P),
         ("fp_sub", _I), ("fp_cols", _I), ("fp_vec", _I),
     ]
@@ -415,12 +418,13 @@ def _set_input(p, h: torch.Tensor, bn, w_a: BinTensor, bn_rcp: bool,
 def _launch(h: torch.Tensor, bn, w_a: BinTensor, adj: Optional[FRDCMatrix],
             w_s: Optional[BinTensor] = None, fbb: bool = False,
             relu: bool = False, trinary_mode: str = "s3_two_popc",
-            item_ptr: Optional[torch.Tensor] = None,
+            tasks: Optional["PairItems"] = None,
             bn_rcp: bool = False, form: Optional[str] = None):
     """One fused launch (``form``: its :data:`PAIR_FORMS` counter). Without
     ``adj`` the kernel stops after its transform and returns it: BMM.FBB
     sign words, or BMM.BBF rows, and with ``w_s`` the pair (rows, self
-    branch rows)."""
+    branch rows). With ``adj`` it aggregates over the task list ``tasks``
+    (``pair_items(adj)``, built here when None)."""
     if trinary_mode not in TRINARY_MODES:
         raise ValueError(trinary_mode)
     p = _Params()
@@ -453,24 +457,33 @@ def _launch(h: torch.Tensor, bn, w_a: BinTensor, adj: Optional[FRDCMatrix],
         if adj.n_cols != n_in or (w_s is not None and adj.n_rows != n_in):
             raise ValueError(f"fused layer: {n_in} input rows for a "
                              f"({adj.n_rows}, {adj.n_cols}) adjacency")
-        if item_ptr is None:
-            item_ptr = work_items(adj.grp_ptr)
+        if tasks is None:
+            tasks = pair_items(adj)
         width = wh * WORD if fbb else ho
         kind = torch.int32 if fbb else torch.float32
         p.aggregate = 1
         p.grp_ptr, p.tiles = adj.grp_ptr.data_ptr(), adj.tiles.data_ptr()
         p.col_idx = adj.col_idx.data_ptr()
-        p.item_ptr = _ptr(item_ptr, dev, torch.int32, "item_ptr")
         p.row_scale = _ptr(adj.row_scale, dev, torch.float32, "row scale")
         p.col_scale = _ptr(adj.col_scale, dev, torch.float32, "col scale")
         p.n_tile_rows, p.n_rows = adj.n_tile_rows, adj.n_rows
         p.chunk = GROUPS_PER_ITEM
+        if tasks.tasks.ndim != 2 or tasks.tasks.shape[1] != 2 \
+                or not 0 <= tasks.n_part <= tasks.tasks.shape[0]:
+            raise ValueError(f"fused layer: a task list of shape "
+                             f"{tuple(tasks.tasks.shape)} with {tasks.n_part} "
+                             f"heavy tasks")
+        p.tasks = _ptr(tasks.tasks, dev, torch.int32, "tasks")
+        p.n_tasks, p.n_part = tasks.tasks.shape[0], tasks.n_part
+        if tasks.n_part:
+            p.row_done = hold(torch.empty(adj.n_tile_rows, dtype=torch.int32,
+                                          device=dev)).data_ptr()
+            p.part = hold(torch.empty(tasks.n_part * TILE * width,
+                                      dtype=kind, device=dev)).data_ptr()
         y = hold(torch.empty((n_in, wh if fbb else ho), dtype=kind,
                              device=dev))
         p.y = y.data_ptr()
         p.fp_sub, p.fp_cols, p.fp_vec = fp_layout(ho, ho, p.y)
-        p.part = hold(torch.empty(max_items(adj) * TILE * width, dtype=kind,
-                                  device=dev)).data_ptr()
         out = torch.empty((adj.n_rows, wh if fbb else ho), dtype=kind,
                           device=dev)
     p.out = out.data_ptr()
@@ -507,24 +520,30 @@ def _fc_launch(h: torch.Tensor, bn, w: BinTensor,
 
 
 class PairItems(NamedTuple):
-    """The pair kernel's work of one shard (:func:`pair_items`)."""
+    """The task list of one aggregating launch (:func:`pair_items`): the
+    pair kernel's of one shard, or a single-host kind's."""
     tasks: torch.Tensor   # (n_tasks, 2) int32: (tile-row, item or -1)
     n_part: int           # the heavy rows' item tasks, first in the list
 
 
-def pair_items(intra: FRDCMatrix, halo: FRDCMatrix) -> PairItems:
-    """The pair kernel's task list over the two matrices' tile-rows, built
-    once per plan (its length costs a device sync). A tile-row has
+def pair_items(intra: FRDCMatrix,
+               halo: Optional[FRDCMatrix] = None) -> PairItems:
+    """The task list over the tile-rows of ``intra`` and, for the pair
+    kernel, ``halo`` (``csrc/tasks.cuh``), built once per plan or per
+    padded operand (on a device its length costs a sync). A tile-row has
     ``max(1, ceil(groups / GROUPS_PER_ITEM))`` items in each matrix
-    (``work_items``). One with a single intra item and a single halo item
-    is one task, ``(row, -1)``; each item of any other row is a task
-    ``(row, k)``, its intra items ``k < n_intra`` then its halo items,
-    those rows first and in order."""
-    if halo.n_tile_rows != intra.n_tile_rows:
+    (``work_items``). One with a single intra item and (with ``halo``) a
+    single halo item is one task, ``(row, -1)``; each item of any other row
+    is a task ``(row, k)``, its intra items ``k < n_intra`` then its halo
+    items, those rows first and in order. Without ``halo`` it is the
+    single-host kinds' list: with an empty halo matrix the pair list
+    differs only by each heavy row's one empty halo item."""
+    if halo is not None and halo.n_tile_rows != intra.n_tile_rows:
         raise ValueError(f"pair: {intra.n_tile_rows} intra and "
                          f"{halo.n_tile_rows} halo tile-rows")
     n_i = torch.diff(work_items(intra.grp_ptr)).long()
-    n_h = torch.diff(work_items(halo.grp_ptr)).long()
+    n_h = torch.zeros_like(n_i) if halo is None else \
+        torch.diff(work_items(halo.grp_ptr)).long()
     rows = torch.arange(intra.n_tile_rows, device=n_i.device)
     heavy = (n_i > 1) | (n_h > 1)
     per = (n_i + n_h)[heavy]
@@ -626,7 +645,8 @@ def _on_card(t: torch.Tensor) -> bool:
 # rows of those nodes (the same transform, computed by their owners with
 # :func:`transform`) and the step's :func:`pair_items`; the kind then runs
 # as :func:`transform` and :func:`pair`. ``bn_rcp`` takes the executors'
-# BN by the reciprocal.
+# BN by the reciprocal. ``tasks``: a single-host kind's task list,
+# ``pair_items(adj)`` (built at each call when None).
 
 def transform(h: torch.Tensor, bn, w: BinTensor, fbb: bool = False,
               bn_rcp: bool = False, w_self: Optional[BinTensor] = None):
@@ -670,7 +690,7 @@ def pair(y: torch.Tensor, ys: Optional[torch.Tensor], rem: torch.Tensor,
 
 def gcn_bin_l1(x: torch.Tensor, bn, w: BinTensor, adj: FRDCMatrix,
                trinary_mode: str = "s3_two_popc",
-               item_ptr: Optional[torch.Tensor] = None,
+               tasks: Optional[PairItems] = None,
                halo: Optional[FRDCMatrix] = None,
                rem: Optional[torch.Tensor] = None,
                pair_items: Optional[PairItems] = None,
@@ -685,14 +705,14 @@ def gcn_bin_l1(x: torch.Tensor, bn, w: BinTensor, adj: FRDCMatrix,
     with counting.entry(ENTRIES, "fused_layer"):
         if _on_card(x):
             return _launch(x, bn, w, adj, fbb=True,
-                           trinary_mode=trinary_mode, item_ptr=item_ptr,
+                           trinary_mode=trinary_mode, tasks=tasks,
                            bn_rcp=bn_rcp)
         return gcn_bin_l1_plain(x, bn, w, adj, trinary_mode, bn_rcp=bn_rcp)
 
 
 def gcn_bbf_fbf(h: torch.Tensor, bn, w: BinTensor, adj: FRDCMatrix,
                 relu: bool = False,
-                item_ptr: Optional[torch.Tensor] = None,
+                tasks: Optional[PairItems] = None,
                 halo: Optional[FRDCMatrix] = None,
                 rem: Optional[torch.Tensor] = None,
                 pair_items: Optional[PairItems] = None,
@@ -705,14 +725,14 @@ def gcn_bbf_fbf(h: torch.Tensor, bn, w: BinTensor, adj: FRDCMatrix,
     KERNEL_CALLS["fused"] += 1
     with counting.entry(ENTRIES, "fused_layer"):
         if _on_card(h):
-            return _launch(h, bn, w, adj, relu=relu, item_ptr=item_ptr,
+            return _launch(h, bn, w, adj, relu=relu, tasks=tasks,
                            bn_rcp=bn_rcp)
         return gcn_bbf_fbf_plain(h, bn, w, adj, relu, bn_rcp=bn_rcp)
 
 
 def branch_add(h: torch.Tensor, bn, w_self: BinTensor, w_agg: BinTensor,
                adj: FRDCMatrix, relu: bool = False,
-               item_ptr: Optional[torch.Tensor] = None,
+               tasks: Optional[PairItems] = None,
                halo: Optional[FRDCMatrix] = None,
                rem: Optional[torch.Tensor] = None,
                pair_items: Optional[PairItems] = None,
@@ -725,7 +745,7 @@ def branch_add(h: torch.Tensor, bn, w_self: BinTensor, w_agg: BinTensor,
     with counting.entry(ENTRIES, "fused_layer"):
         if _on_card(h):
             return _launch(h, bn, w_agg, adj, w_s=w_self, relu=relu,
-                           item_ptr=item_ptr, bn_rcp=bn_rcp)
+                           tasks=tasks, bn_rcp=bn_rcp)
         return branch_add_plain(h, bn, w_self, w_agg, adj, relu,
                                 bn_rcp=bn_rcp)
 

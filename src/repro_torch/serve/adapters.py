@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..core import frdc
-from ..kernels import bspmm_kernel
+from ..kernels import fused_layer
 from . import session_core
 
 
@@ -105,7 +105,8 @@ class GNNAdapter(ModelFamilyAdapter):
         n_pad = x.shape[0]
         mats = {k: session_core.frdc_rebuild(v, n_pad, n_pad)
                 for k, v in operands.items()}
-        items = {k: v.get("item_ptr") for k, v in operands.items()}
+        items = {k: fused_layer.PairItems(v["tasks"], v["n_part"])
+                 for k, v in operands.items() if "tasks" in v}
         out = session_core.family_forward(self.plan, core.qparams, x, mats,
                                           use_pallas=core.use_pallas,
                                           items=items, bn_stats=state)
@@ -124,12 +125,21 @@ class GNNAdapter(ModelFamilyAdapter):
                         session_core.bucket_pow2(m.n_groups,
                                                  core.GROUP_BUCKET_FLOOR))
             core._g_water[wkey] = g_pad
-            arrs = session_core.frdc_arrays(
-                frdc.pad_frdc(m, n_pad, n_groups=g_pad))
-            if fused:   # the fused kernels' work items, built on the host
-                arrs["item_ptr"] = bspmm_kernel.work_items(arrs["grp_ptr"])
+            padded = frdc.pad_frdc(m, n_pad, n_groups=g_pad)
+            arrs = session_core.frdc_arrays(padded)
+            if fused:   # the fused kernels' task list, built on the host
+                arrs["tasks"], arrs["n_part"] = fused_layer.pair_items(padded)
             adjs[k] = arrs
         return n_pad, adjs
+
+    def upload(self, core, staged):
+        """As the default, but a task list's heavy count (``n_part``) stays
+        a host int: the fused wrapper sizes its scratch from it."""
+        x = core._upload(staged.x_pad)
+        operands = {k: {f: v if f == "n_part" else core._upload(v)
+                        for f, v in a.items()}
+                    for k, a in staged.adjs.items()}
+        return x, operands, core._upload(staged.pos_pad)
 
     def sub_operands(self, n_sub: int, sub_edges, dinv_sub):
         return session_core.sub_adjacency(self.plan.family, n_sub,

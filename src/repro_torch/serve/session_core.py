@@ -129,8 +129,8 @@ def family_forward(plan: SessionPlan, qparams, x,
     ``use_pallas`` turns on the plan's kernel selection: ``bspmm_block``
     routes the BSpMM stages to the 2D block grid, and ``fused`` (with
     frozen BN stats, not calibrating) runs one fused kernel per layer.
-    ``items``: optional precomputed work-item pointers per adjacency kind
-    for the fused kernels.
+    ``items``: optional precomputed task lists per adjacency kind for the
+    fused kernels (``fused_layer.pair_items``).
     """
     fused = (plan.fused and use_pallas
              and kw.get("bn_stats") is not None

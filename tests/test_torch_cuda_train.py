@@ -18,7 +18,12 @@ They need a CUDA device and skip elsewhere. No JAX:
   the two devices' rounding difference into a step of up to lr);
 * the training loop reads nothing back from the card per epoch: with
   ``torch.cuda.set_sync_debug_mode("error")`` the first synchronizing call
-  comes after the sixth of 6 forwards.
+  comes after the sixth of 6 forwards;
+* ``bspmm_kernel.bspmm_fp_walk_plain`` on the CPU is bit-equal to the 1D
+  ``bspmm_fp`` kernel on the same float32 inputs, at widths of each lane
+  layout, on a graph with hub tile-rows of 17, 40 and 300 groups and on
+  its ``pad_frdc`` bucket (phase 13 of ``chip_smoke.py`` holds the card's
+  trained forwards to CPU forwards that aggregate with it).
 """
 import traceback
 
@@ -33,6 +38,7 @@ torch = lazy("torch")
 gnn = lazy("repro_torch.models.gnn")
 frdc = lazy("repro_torch.core.frdc")
 datasets = lazy("repro_torch.graphs.datasets")
+bspmm_kernel = lazy("repro_torch.kernels.bspmm_kernel")
 
 HIDDEN = 32
 
@@ -126,3 +132,33 @@ def test_training_loop_has_no_sync_per_epoch(cuda, cora):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert len(calls) == 6, where
+
+
+@pytest.mark.gpu
+def test_fp_walk_mirror_bit_equal_to_kernel(cuda):
+    rng = np.random.default_rng(13)
+    n, hubs = 10003, {1: 17, 3: 40, 5: 300}
+    src = rng.integers(0, n // 2, 5 * n)
+    keep = ~np.isin(src // 4, list(hubs))
+    rows, cols = [src[keep]], [rng.integers(0, n, 5 * n)[keep]]
+    for tr, groups in hubs.items():
+        tc = np.arange(8 * groups)               # one tile per tile-column
+        rows.append(tr * 4 + tc % 4)
+        cols.append(tc * 4 + (tc * 7) % 4)
+        extra = rng.integers(0, tc.size, tc.size // 3)   # more bits a tile
+        rows.append(tr * 4 + (tc[extra] + 1) % 4)
+        cols.append(tc[extra] * 4 + rng.integers(0, 4, extra.size))
+    adj = frdc.from_coo(np.concatenate(rows), np.concatenate(cols), n, n,
+                        device="cpu")
+    per = (adj.grp_ptr[1:] - adj.grp_ptr[:-1]).numpy()
+    assert {tr: int(per[tr]) for tr in hubs} == hubs
+    for m in (adj, frdc.pad_frdc(adj, n + 13, n_groups=adj.n_groups + 11)):
+        on_card = m._replace(**{k: getattr(m, k).to(cuda) for k in (
+            "tiles", "col_idx", "group_row", "group_first", "grp_ptr")})
+        for f in (1, 7, 16, 17, 64, 100):
+            x = torch.from_numpy(rng.standard_normal((m.n_cols, f))
+                                 .astype(np.float32))
+            got = bspmm_kernel.bspmm_fp_cuda(on_card, x.to(cuda)).cpu()
+            want = bspmm_kernel.bspmm_fp_walk_plain(m, x)
+            assert torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)), (m.n_rows, f)

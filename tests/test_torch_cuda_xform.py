@@ -20,7 +20,13 @@ those of the fp64 product wherever |value| exceeds 1e-5 of its sum of
 |terms|. Two runs are bit-equal. ``fused_fc`` equals its mirror
 ``fc_rows_plain`` bit for bit at f in {64, 65, 4096} and ho in {7, 41, 256},
 with BN by the division and by the reciprocal, at row counts that are not
-a multiple of a block's 32 rows.
+a multiple of a block's 32 rows. The aggregating kinds' task walk
+(``csrc/tasks.cuh``) runs on a graph with hub tile-rows of 17 and 40
+groups, empty tile-rows, and its ``pad_frdc`` bucket: each kind one launch,
+bit-equal to the two-launch form (the transform alone, then the pair
+kernel with an empty halo matrix) and to its plain version (words) or
+within the tolerance (fp), with ReLU and both trinary formulas; a column
+whose every gathered value is -0.0 stores +0.0.
 """
 import ctypes
 
@@ -328,3 +334,113 @@ def test_fused_fc_bit_equal_to_mirror(cuda):
         a = fused_layer.fc_attributes(f)
         assert 0 < a["dynamic_smem_bytes"] <= 48 * 1024, (f, a)
         assert a["blocks_per_sm"] >= 1 and a["registers"] <= 255, a
+
+
+HUB_GROUPS = {1: 17, 3: 40}     # tile-row: groups
+
+
+def _hub_graph(rng, cuda, pad):
+    """Random edges on the first half of the rows, tile-rows 1 and 3 of
+    exactly HUB_GROUPS groups, empty tile-rows below; with ``pad`` the
+    ``pad_frdc`` bucket (13 more rows, 11 more groups)."""
+    src = rng.integers(0, ROWS // 2, 4 * ROWS)
+    keep = ~np.isin(src // 4, list(HUB_GROUPS))
+    rows, cols = [src[keep]], [rng.integers(0, ROWS, 4 * ROWS)[keep]]
+    for tr, groups in HUB_GROUPS.items():
+        tc = np.arange(8 * groups)               # one tile per tile-column
+        rows.append(tr * 4 + tc % 4)
+        cols.append(tc * 4 + (tc * 7) % 4)
+    adj = frdc.from_coo(np.concatenate(rows), np.concatenate(cols), ROWS,
+                        ROWS, device=cuda)
+    per = (adj.grp_ptr[1:] - adj.grp_ptr[:-1]).cpu().numpy()
+    assert {tr: int(per[tr]) for tr in HUB_GROUPS} == HUB_GROUPS
+    if pad:
+        adj = frdc.pad_frdc(adj, ROWS + 13, n_groups=adj.n_groups + 11)
+    n = adj.n_cols
+    scale = torch.from_numpy(rng.uniform(0.25, 1.0, n).astype(np.float32))
+    return adj, adj._replace(row_scale=scale.to(cuda),
+                             col_scale=scale.flip(0).contiguous().to(cuda))
+
+
+def _empty_halo(adj):
+    none = torch.zeros((0, 8), dtype=torch.int32, device=adj.device)
+    return adj._replace(tiles=none, col_idx=none.clone(),
+                        group_row=none[:, 0].contiguous(),
+                        group_first=none[:, 0].contiguous(),
+                        grp_ptr=torch.zeros_like(adj.grp_ptr), n_cols=0,
+                        nnz=0, row_scale=None, col_scale=None)
+
+
+@pytest.mark.gpu
+def test_fused_task_walk_matches_plain(cuda):
+    fl = fused_layer
+    rng = np.random.default_rng(17)
+    f, ho, n_cls = 500, 64, 7
+    for pad in (False, True):
+        adj01, scaled = _hub_graph(rng, cuda, pad)
+        n = adj01.n_cols
+        mean = scaled._replace(col_scale=None)
+        x, bn = _inputs(rng, n, f, cuda, normal=True)
+        # BMM.FBB on integers: its sums are exact in the plain order too
+        xi, bni = _inputs(rng, n, f, cuda, normal=False)
+        wi = _weights(rng, ho, f, cuda)
+        h = _words(rng, n, ho, cuda)
+        w1, w2 = (_weights(rng, ho, f, cuda, normal=True) for _ in range(2))
+        w3 = _weights(rng, n_cls, ho, cuda, normal=True)
+        rem = {torch.int32: torch.zeros((4, 2), dtype=torch.int32,
+                                        device=cuda),
+               torch.float32: torch.zeros((4, ho), device=cuda)}
+
+        def two(y, ys, adj, **kw):
+            halo = _empty_halo(adj)
+            return fl.pair(y, ys, rem[y.dtype][:, :y.shape[1]].contiguous(),
+                           adj, halo, fl.pair_items(adj, halo), **kw)
+        cases = []
+        for mode in ("s2_and_andnot", "s3_two_popc"):
+            cases.append((f"gcn_bin_l1 {mode}",
+                          lambda m=mode: fl.gcn_bin_l1(xi, bni, wi, adj01, m),
+                          lambda m=mode: fl.gcn_bin_l1_plain(xi, bni, wi,
+                                                             adj01, m),
+                          lambda m=mode: two(fl.transform(xi, bni, wi,
+                                                          fbb=True),
+                                             None, adj01, n_out=ho,
+                                             trinary_mode=m), None))
+        for relu in (False, True):
+            words, xs = fl._input(h, None)
+            cases.append((f"gcn_bbf_fbf words relu={relu}",
+                          lambda r=relu: fl.gcn_bbf_fbf(h, None, w3, scaled, r),
+                          lambda r=relu: fl.gcn_bbf_fbf_plain(h, None, w3, scaled, r),
+                          lambda r=relu: two(fl.transform(h, None, w3), None,
+                                             scaled, relu=r),
+                          fl.agg_fp(scaled, fl._bbf(words, xs, w3).abs())))
+            words, xs = fl._input(x, bn)
+            cases.append((f"branch_add relu={relu}",
+                          lambda r=relu: fl.branch_add(x, bn, w1, w2, mean, r),
+                          lambda r=relu: fl.branch_add_plain(x, bn, w1, w2, mean, r),
+                          lambda r=relu: two(*fl.transform(x, bn, w2, w_self=w1),
+                                             mean, relu=r),
+                          fl.agg_fp(mean, fl._bbf(words, xs, w2).abs())
+                          + fl._bbf(words, xs, w1).abs()))
+        tasks = fl.pair_items(adj01)
+        assert tasks.n_part == sum(-(-g // 16) for g in HUB_GROUPS.values())
+        for name, one, plain, pair2, mag in cases:
+            ops.reset_launch_counts()
+            got, again = one(), one()
+            torch.cuda.synchronize()
+            assert ops.launch_counts()["fused_layer"] == 2, name
+            assert torch.equal(got, again), (name, pad)
+            assert torch.equal(got.view(torch.int32),
+                               pair2().view(torch.int32)), (name, pad)
+            if mag is None:
+                assert torch.equal(got, plain()), (name, pad)
+            else:
+                _hold(got, plain(), mag)
+        # every gathered value of column 0 is -0.0 (a zero count times a
+        # negative weight scale): the stored sums are +0.0
+        zero = torch.zeros((n, 2), dtype=torch.int32, device=cuda)
+        w0 = _weights(rng, n_cls, ho, cuda, normal=True)
+        w0.packed[0] = torch.tensor([-1, 0], dtype=torch.int32)
+        w0.scale[0] = -w0.scale[0]
+        for relu in (False, True):
+            out = fl.gcn_bbf_fbf(zero, None, w0, scaled, relu)
+            assert bool((out[:, 0].view(torch.int32) == 0).all()), (pad, relu)

@@ -15,6 +15,7 @@ from repro.core import bitops as jb, frdc as jf  # noqa: E402
 tf = lazy("repro_torch.core.frdc")
 tbk = lazy("repro_torch.kernels.bmm_kernel")
 tsk = lazy("repro_torch.kernels.bspmm_kernel")
+tfl = lazy("repro_torch.kernels.fused_layer")
 tpk = lazy("repro_torch.kernels.pack_kernel")
 build = lazy("repro_torch.kernels.build")
 ops = lazy("repro_torch.kernels.ops")
@@ -94,8 +95,8 @@ def test_build_paths_and_missing_nvcc(monkeypatch):
 @pytest.mark.parametrize("hub_groups", [0, 1, 16, 17, 40])
 def test_cuda_work_items_cover_every_group_once(hub_groups):
     """The fused layer's aggregation schedule: every tile-row owns at least
-    one work item, its items cover its groups exactly, and the scratch bound
-    holds."""
+    one work item, its items cover its groups exactly, and the task list's
+    heavy count (which sizes the scratch) is the heavy rows' items."""
     rng = np.random.default_rng(hub_groups)
     n = max(64, hub_groups * 32 + 8)
     a = _graph(rng, n, 0.01)
@@ -103,11 +104,12 @@ def test_cuda_work_items_cover_every_group_once(hub_groups):
     a[1, : hub_groups * 32] = 1.0     # tile-row 0 gets `hub_groups` groups
     adj = tf.pad_frdc(tf.from_dense(a, device="cpu"), n + 8,
                       n_groups=tf.from_dense(a, device="cpu").n_groups + 3)
-    item_ptr, max_items = tsk.work_items(adj.grp_ptr), tsk.max_items(adj)
+    item_ptr, tasks = tsk.work_items(adj.grp_ptr), tfl.pair_items(adj)
     per = np.diff(adj.grp_ptr.numpy())
     items = np.diff(item_ptr.numpy())
     c = tsk.GROUPS_PER_ITEM
     np.testing.assert_array_equal(items, np.maximum(1, -(-per // c)))
-    assert item_ptr[0] == 0 and int(item_ptr[-1]) <= max_items
+    assert item_ptr[0] == 0 and tasks.n_part == int(items[items > 1].sum())
+    assert tasks.tasks.shape[0] == tasks.n_part + int((items == 1).sum())
     assert all(k * c < max(p, 1) for p, k in zip(per, items - 1))
     assert item_ptr.dtype == torch.int32 and item_ptr.shape == (adj.n_tile_rows + 1,)

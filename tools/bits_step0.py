@@ -238,7 +238,7 @@ def main_path_calls():
         "bspmm_bits_grid bucket (32, None) counts s3": lambda: bk.bspmm_bits_grid_cuda(
             bin_b, h_b, HIDDEN, False, S3, plan[(32, None)]),
         "gcn_bin_l1 bucket 500->64": lambda: fused_layer.gcn_bin_l1(
-            x, bn, w1, bin_b, item_ptr=items["bin"]),
+            x, bn, w1, bin_b, **items["bin"]),
     }
     inputs = digest(h_f, h_r, h_b, x, bn[0], bn[1], w1.packed, w1.scale,
                     adj_f.tiles, adj_r.tiles, bin_b.tiles)

@@ -11,9 +11,9 @@ that change, unpacked with ``git archive`` into a directory that
 1. ``fp_grid_kernel`` at the serve bucket (F = 7, block (32, 32)): the whole
    kernel against a copy of its source without the heavy-row loop (tile-rows
    of more than ``kHeavy`` groups are skipped), each timed twice in turns;
-2. ``bspmm_fp`` on full Flickr's GCN FRDC at F = 64, 32 and 7: the wrapper
-   against the bare launch with prebuilt work items;
-3. ``torch.sparse.mm`` at the same shapes, and ptxas' register counts.
+2. ``bspmm_fp`` on full Flickr's GCN FRDC at F = 64, 32 and 7 (the
+   wrapper) against ``torch.sparse.mm`` at the same shapes;
+3. ptxas' register counts.
 """
 import ctypes
 import json
@@ -110,39 +110,20 @@ def main():
     csr = torch.sparse_coo_tensor(torch.from_numpy(np.stack([rows, cols])).to(dev),
                                   torch.ones(rows.size, device=dev),
                                   (n, n)).coalesce().to_sparse_csr()
-    lib = build.library("bspmm")
-    item_ptr, mx, _ = bspmm_kernel._work_items(adj)
-    row_done = torch.zeros(adj.n_tile_rows, dtype=torch.int32, device=dev)
-    n_items = int(item_ptr[-1])
     print(f"flickr gcn: groups {adj.n_groups} tile-rows {adj.n_tile_rows} "
-          f"items {n_items} (bound {mx}) nnz {adj.nnz}", flush=True)
+          f"nnz {adj.nnz}", flush=True)
     for f in (64, 32, 7):
         x = torch.from_numpy(rng.standard_normal((n, f)).astype(np.float32)).to(dev)
-        out = torch.empty((adj.n_tile_rows * 4, f), device=dev)
-        scratch = torch.empty(mx * 4 * f, device=dev)
-        stream = torch.cuda.current_stream().cuda_stream
-
-        def bare():
-            row_done.zero_()
-            build.check(lib.bspmm_fp(
-                item_ptr.data_ptr(), adj.grp_ptr.data_ptr(), adj.tiles.data_ptr(),
-                adj.col_idx.data_ptr(), x.data_ptr(), out.data_ptr(),
-                scratch.data_ptr(), row_done.data_ptr(), adj.n_tile_rows, mx,
-                bspmm_kernel.GROUPS_PER_ITEM, n, f, stream), "bare")
-
-        bare()
         want = bspmm_kernel.bspmm_fp_plain(adj, x)
-        err = float((out - want).abs().max())
+        err = float((bspmm_kernel.bspmm_fp_cuda(adj, x) - want).abs().max())
         for turn in range(2):
             res[f"1d F={f} wrapper #{turn}"] = cuda_ms(
                 lambda: bspmm_kernel.bspmm_fp_cuda(adj, x))
-            res[f"1d F={f} bare (zero_ + launch) #{turn}"] = cuda_ms(bare)
             res[f"1d F={f} torch.sparse.mm #{turn}"] = cuda_ms(
                 lambda: torch.sparse.mm(csr, x))
         res[f"1d F={f} max err"] = err
         print(json.dumps({k: v for k, v in res.items() if f"F={f} " in k}),
               flush=True)
-    res["empty launch work_items"] = cuda_ms(lambda: bspmm_kernel.work_items(adj.grp_ptr))
 
     # -- grid at the serve bucket --------------------------------------
     st = GraphStore(max_batch=32, khop=2, use_pallas=True, device=dev,
@@ -157,7 +138,8 @@ def main():
     n_pad = staged.x_pad.shape[0]
     a = staged.adjs["adj"]
     adj_b = session_core.frdc_rebuild(
-        {k: v.to(dev) for k, v in a.items() if k != "item_ptr"}, n_pad, n_pad)
+        {k: v.to(dev) for k, v in a.items() if torch.is_tensor(v)}, n_pad,
+        n_pad)
     gp = adj_b.grp_ptr.cpu().numpy()
     per = np.diff(gp)
     heavy = per > 32

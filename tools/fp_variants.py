@@ -110,7 +110,8 @@ def main():
     n_pad = staged.x_pad.shape[0]
     a = staged.adjs["adj"]
     adj_b = session_core.frdc_rebuild(
-        {k: v.to(dev) for k, v in a.items() if k != "item_ptr"}, n_pad, n_pad)
+        {k: v.to(dev) for k, v in a.items() if torch.is_tensor(v)}, n_pad,
+        n_pad)
     stream = torch.cuda.current_stream().cuda_stream
     cases = {}
     for f in (64, 7):

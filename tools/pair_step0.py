@@ -19,18 +19,16 @@ tree or on another one (``--tree``, e.g. an earlier commit unpacked with
    and SAINT's fc 64 -> 7 with BN by the reciprocal (``fc+rcp``, one
    launch, on N(0, 1) rows; the step only):
    the step (each kind's entry point with its halo) in CUDA-event ms and
-   torch.profiler device ms, its transform alone (a tree with the pair
-   kernel: ``fused_layer.transform``; an older tree: the one launch with
-   ``aggregate = 0``, ``chip_smoke.transform_only``), and on a tree with
-   the pair kernel the pair launch alone on the transform's output, with
-   its bound (bytes of both matrices' groups, tasks, the gathered rows of
-   y and rem, the scales, ys and the output);
+   torch.profiler device ms, its transform alone (``fused_layer.transform``)
+   and the pair launch alone on the transform's output, with its bound
+   (bytes of both matrices' groups, tasks, the gathered rows of y and rem,
+   the scales, ys and the output);
 2. the distributed pass of every fused sharded way (GCN "bin", GCN "full",
    SAGE, SAINT; ``ShardedGraphSession(executor="host")``, seeded weights)
    in host ms (median of 5), with its launches, halo bytes a pass and
    ``compile_count``;
-3. ptxas' registers and spills of ``fused_layer.cu`` and, where the tree
-   has it, ``fused_pair.cu``.
+3. ptxas' registers and spills of ``fused_layer.cu`` and
+   ``fused_pair.cu``.
 
 ``--save`` writes the SHA-256 of every output of sections 1-2 (each step,
 and each pass's logits; the inputs are made from a fixed seed in a fixed
@@ -66,14 +64,13 @@ from repro_torch.serve import GraphStore, session_core  # noqa: E402
 from repro_torch.serve.sharded import ShardedGraphSession, \
     ShardPlanner  # noqa: E402
 from chip_smoke import FP32_OPS_PER_S, INT8_TC_OPS_PER_S, bound, cuda_ms, \
-    device_ms, group_bytes, transform_only  # noqa: E402
+    device_ms, group_bytes  # noqa: E402
 
 SEED = 0
 HIDDEN = 64
 SHARDS = 4
 dev = "cuda"
 fl = fused_layer
-HAS_PAIR = hasattr(fl, "pair")
 # name -> (family, scheme)
 WAYS = {"gcn_bin/fused": ("gcn", "bin"), "gcn_full/fused": ("gcn", "full"),
         "sage/fused": ("sage", "fixed"), "saint/fused": ("saint", "fixed")}
@@ -83,8 +80,6 @@ def ptxas_report():
     nvcc = build.nvcc_path()
     for name in ("fused_layer", "fused_pair"):
         src = ROOT / f"src/repro_torch/csrc/{name}.cu"
-        if not src.exists():
-            continue
         r = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                             "-std=c++17", "-O3", "-Xptxas", "-v", "-c", "-o",
                             "/dev/null", str(src)], capture_output=True,
@@ -168,11 +163,7 @@ def step_calls(sess):
     def shard0(name, kind):
         ex = sess[name].layer_executor
         a, h, it = ex._intra[kind][0], ex._halo[kind][0], ex._items[kind][0]
-        # a tree with the pair kernel keeps its task list; an older one
-        # (item_ptr, halo items)
-        kw = dict(pair_items=it) if HAS_PAIR else \
-            dict(item_ptr=it[0], halo_items=it[1])
-        return a, h, it, kw
+        return a, h, it, dict(pair_items=it)
 
     def pair_bound(a, h, it, y, ys, rem, ho, words_):
         nbytes = (group_bytes(a) + group_bytes(h) + 8 * it.tasks.shape[0]
@@ -224,8 +215,8 @@ def step_calls(sess):
     forms["branch_add+halo"] = (
         partial(fl.branch_add, x, bn, ws, wa, a, True, halo=h, rem=rem,
                 bn_rcp=True, **kw),
-        partial(fl.transform, x, bn, wa, bn_rcp=True, w_self=ws)
-        if HAS_PAIR else None, (rem, a, h, it), dict(relu=True), False)
+        partial(fl.transform, x, bn, wa, bn_rcp=True, w_self=ws),
+        (rem, a, h, it), dict(relu=True), False)
     # 7h: SAINT's fc 64 -> 7 with BN by the reciprocal, one launch and no
     # pair, on N(0, 1) rows (so the order of its row scale's sum shows)
     xf = card(rng.standard_normal((a.n_rows, HIDDEN)).astype(np.float32))
@@ -238,7 +229,7 @@ def step_calls(sess):
     out = {}
     for name, (step, xform, rest, pkw, words_) in forms.items():
         pair = bnd = None
-        if HAS_PAIR and rest is not None:
+        if rest is not None:
             y = xform()
             y, ys = y if isinstance(y, tuple) else (y, None)
             pair = partial(fl.pair, y, ys, *rest, **pkw)
@@ -253,7 +244,7 @@ def main():
     t0 = time.perf_counter()
     build.build_all()
     ptxas_report()
-    print(f"tree {ROOT}; pair kernel: {HAS_PAIR}; build "
+    print(f"tree {ROOT}; build "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     flickr = make_dataset("flickr", seed=SEED, scale=1.0)
@@ -272,10 +263,6 @@ def main():
                 row.setdefault("pair_ms", []).append(cuda_ms(torch, pair))
                 row.setdefault("pair_device_ms", []).append(
                     device_ms(torch, pair))
-            elif not HAS_PAIR:
-                with transform_only(build):
-                    row.setdefault("transform_ms", []).append(
-                        cuda_ms(torch, step))
         if pair is not None:
             row["pair_bound_ms"], row["pair_bound_by"] = bnd
             it = pair.args[5]

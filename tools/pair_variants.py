@@ -7,7 +7,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 tools/pair_variants.py
 
-Each variant is the shipped source with a text change, built by nvcc
+Each variant is the shipped source (``csrc/fused_pair.cu``, and the task
+walk it includes, ``csrc/tasks.cuh``) with a text change, built by nvcc
 beside the shipped library and swapped in through ``build._LIBS``, so that
 the normal wrapper (``fused_layer.pair``) launches it:
 
@@ -53,11 +54,11 @@ OUT = build.BUILD_DIR / "pair_variants"
 FP_BOUNDS = "__launch_bounds__(kThreads)\n    fused_pair_fp_kernel"
 BITS_BOUNDS = "__launch_bounds__(kThreads, walk::bits_min_blocks(kW))"
 TASK = ("  const long long t = (long long)blockIdx.x * kWarps + warp;\n"
-        "  if (t >= p.n_tasks) return;\n")
+        "  if (t >= a.n_tasks) return;\n")
 TASK_LOOP = ("  for (long long t = (long long)blockIdx.x * kWarps + warp; "
-             "t < p.n_tasks;\n       t += (long long)gridDim.x * kWarps) {\n")
-FP_HEAVY = "    fp_heavy<kSub, kCols, kVec>(p, t, tr, k, lane, s_hits[warp]);\n}"
-BITS_HEAVY = "    bits_heavy<kW, kS2>(p, t, tr, k, lane);\n}"
+             "t < a.n_tasks;\n       t += (long long)gridDim.x * kWarps) {\n")
+FP_TASK = "                                          s_hits[warp]);\n}"
+BITS_TASK = "                                  lane);\n}"
 GRID = "  const unsigned blocks = (unsigned)((p.n_tasks + kWarps - 1) / kWarps);\n"
 GRID_RESIDENT = (
     "  unsigned blocks = (unsigned)((p.n_tasks + kWarps - 1) / kWarps);\n"
@@ -75,27 +76,27 @@ COMBINE = """    for (int it = 0; it < n_i; ++it) {
       const float* q = first + (size_t)it * slot + col;
 #pragma unroll
       for (int i = 0; i < kTile; ++i)
-        acc[i] = __fadd_rn(acc[i], __ldcg(q + (size_t)i * p.ho));
+        acc[i] = __fadd_rn(acc[i], __ldcg(q + (size_t)i * w.ho));
     }
-    for (int it = n_i; it < n_i + n_h; ++it) {
+    for (int it = n_i; it < n_all; ++it) {
       const float* q = first + (size_t)it * slot + col;
 #pragma unroll
       for (int i = 0; i < kTile; ++i)
-        hacc[i] = __fadd_rn(hacc[i], __ldcg(q + (size_t)i * p.ho));
+        hacc[i] = __fadd_rn(hacc[i], __ldcg(q + (size_t)i * w.ho));
     }
 """
-COMBINE_8 = """    for (int it0 = 0; it0 < n_i + n_h; it0 += 8) {
+COMBINE_8 = """    for (int it0 = 0; it0 < n_all; it0 += 8) {
       float v[8][kTile];
 #pragma unroll
       for (int b = 0; b < 8; ++b)
 #pragma unroll
         for (int i = 0; i < kTile; ++i)
-          v[b][i] = it0 + b < n_i + n_h
-              ? __ldcg(first + (size_t)(it0 + b) * slot + (size_t)i * p.ho + col)
+          v[b][i] = it0 + b < n_all
+              ? __ldcg(first + (size_t)(it0 + b) * slot + (size_t)i * w.ho + col)
               : 0.f;
 #pragma unroll
       for (int b = 0; b < 8; ++b) {
-        if (it0 + b >= n_i + n_h) break;
+        if (it0 + b >= n_all) break;
 #pragma unroll
         for (int i = 0; i < kTile; ++i) {
           if (it0 + b < n_i) acc[i] = __fadd_rn(acc[i], v[b][i]);
@@ -104,45 +105,55 @@ COMBINE_8 = """    for (int it0 = 0; it0 < n_i + n_h; it0 += 8) {
       }
     }
 """
-HALO_RANGE = ("  const int h0 = p.h_grp_ptr[tr], h1 = p.h_grp_ptr[tr + 1];\n"
+HALO_RANGE = ("    h1 = w.h.grp_ptr[tr + 1];\n  }\n"
               "  for (int c0 = 0;")
 HALO_EARLY = (
-    "  const int h0 = p.h_grp_ptr[tr], h1 = p.h_grp_ptr[tr + 1];\n"
-    "  if (lane / walk::kGroup < h1 - h0) {\n"
-    "    asm volatile(\"prefetch.global.L2 [%0];\" ::\"l\"(p.h_tiles + (size_t)h0 * walk::kGroup + lane));\n"
-    "    asm volatile(\"prefetch.global.L2 [%0];\" ::\"l\"(p.h_col_idx + (size_t)h0 * walk::kGroup + lane));\n"
-    "  }\n"
+    "    h1 = w.h.grp_ptr[tr + 1];\n"
+    "    if (lane / walk::kGroup < h1 - h0) {\n"
+    "      asm volatile(\"prefetch.global.L2 [%0];\" ::\"l\"(w.h.tiles + (size_t)h0 * walk::kGroup + lane));\n"
+    "      asm volatile(\"prefetch.global.L2 [%0];\" ::\"l\"(w.h.col_idx + (size_t)h0 * walk::kGroup + lane));\n"
+    "    }\n  }\n"
     "  for (int c0 = 0;")
+PAIR, TASKS = "fused_pair.cu", "tasks.cuh"
+# name -> [(file, old text, new text)]
 VARIANTS = {
-    "fp min blocks 4": [(FP_BOUNDS, FP_BOUNDS.replace("(kThreads)",
-                                                      "(kThreads, 4)"))],
-    "bits min blocks 2": [(BITS_BOUNDS, "__launch_bounds__(kThreads, 2)")],
-    "warps loop over tasks": [(TASK, TASK_LOOP), (FP_HEAVY, FP_HEAVY + "\n}"),
-                              (BITS_HEAVY, BITS_HEAVY + "\n}"),
-                              (GRID, GRID_RESIDENT)],
-    "combine 8 items at once": [(COMBINE, COMBINE_8)],
-    "halo index loads early": [(HALO_RANGE, HALO_EARLY)],
+    "fp min blocks 4": [(PAIR, FP_BOUNDS, FP_BOUNDS.replace(
+        "(kThreads)", "(kThreads, 4)"))],
+    "bits min blocks 2": [(PAIR, BITS_BOUNDS,
+                           "__launch_bounds__(kThreads, 2)")],
+    "warps loop over tasks": [(PAIR, TASK, TASK_LOOP),
+                              (PAIR, FP_TASK, FP_TASK + "\n}"),
+                              (PAIR, BITS_TASK, BITS_TASK + "\n}"),
+                              (PAIR, GRID, GRID_RESIDENT)],
+    "combine 8 items at once": [(TASKS, COMBINE, COMBINE_8)],
+    "halo index loads early": [(TASKS, HALO_RANGE, HALO_EARLY)],
 }
 
 
 def build_variants():
-    """Start one nvcc a variant (in parallel); returns name -> library."""
-    src = (build.CSRC / "fused_pair.cu").read_text()
-    OUT.mkdir(parents=True, exist_ok=True)
+    """Start one nvcc a variant (in parallel); returns name -> library.
+    A variant's edited files go to a directory of its own: the source's
+    quoted includes find an edited header there before ``csrc/``."""
     procs = {}
     for name, edits in VARIANTS.items():
-        text = src
-        for old, new in edits:
+        texts = {}
+        for file, old, new in edits:
+            text = texts.get(file) or (build.CSRC / file).read_text()
             if old not in text:
-                raise SystemExit(f"pair_variants: {name}: source text not found")
-            text = text.replace(old, new)
-        stem = OUT / name.replace(" ", "_")
-        stem.with_suffix(".cu").write_text(text)
+                raise SystemExit(f"pair_variants: {name}: {file} text not "
+                                 f"found")
+            texts[file] = text.replace(old, new)
+        texts.setdefault(PAIR, (build.CSRC / PAIR).read_text())
+        where = OUT / name.replace(" ", "_")
+        where.mkdir(parents=True, exist_ok=True)
+        for file, text in texts.items():
+            (where / file).write_text(text)
+        so = where / "fused_pair.so"
         cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
-               "-o", str(stem.with_suffix(".so")), str(stem.with_suffix(".cu"))]
+               "-o", str(so), str(where / PAIR)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
-                       stem.with_suffix(".so"))
+                       so)
     libs = {}
     for name, (proc, so) in procs.items():
         log, _ = proc.communicate()

@@ -106,8 +106,11 @@ def digest(*ts):
 
 
 def serve_bucket():
-    """Full Flickr, and the FRDCs and work items of the serve bucket of the
-    first batch of a warmed GCN session (32 seeds, 2 hops)."""
+    """Full Flickr, and the FRDCs and fused work of the serve bucket of the
+    first batch of a warmed GCN session (32 seeds, 2 hops): per adjacency
+    kind the keyword a fused kind takes it by, the task list (``tasks``)
+    or, on a tree from before the task walk, the item offsets
+    (``item_ptr``)."""
     flickr = make_dataset("flickr", seed=SEED, scale=1.0)
     n_fl, f_fl = flickr.x.shape
     st = GraphStore(max_batch=32, khop=2, use_pallas=True, device=dev,
@@ -120,10 +123,14 @@ def serve_bucket():
     seeds = np.random.default_rng(SEED + 2).integers(0, n_fl, size=(8, 32))
     staged = sess.prepare_batch(seeds[0]).groups[0].staged
     n_pad = staged.x_pad.shape[0]
+    work = ("tasks", "n_part", "item_ptr")
     bucket = {k: session_core.frdc_rebuild(
-        {f: v.to(dev) for f, v in a.items() if f != "item_ptr"}, n_pad, n_pad)
+        {f: v.to(dev) for f, v in a.items() if f not in work}, n_pad, n_pad)
         for k, a in staged.adjs.items()}
-    items = {k: a["item_ptr"].to(dev) for k, a in staged.adjs.items()}
+    items = {k: dict(tasks=fused_layer.PairItems(a["tasks"].to(dev),
+                                                 a["n_part"]))
+             if "tasks" in a else dict(item_ptr=a["item_ptr"].to(dev))
+             for k, a in staged.adjs.items()}
     print(f"bucket {n_pad} rows; groups {bucket['bin'].n_groups} (bin), "
           f"{bucket['adj'].n_groups} (adj)", flush=True)
     return flickr, n_pad, bucket, items
@@ -168,13 +175,13 @@ def main():
     fl = fused_layer
     kinds = {
         "gcn_bin_l1 500->64": lambda: fl.gcn_bin_l1(
-            x, bn_x, w1, bin_b, item_ptr=items["bin"]),
+            x, bn_x, w1, bin_b, **items["bin"]),
         "gcn_bin_l1 500->64 without BN": lambda: fl.gcn_bin_l1(
-            x, None, w1, bin_b, item_ptr=items["bin"]),
+            x, None, w1, bin_b, **items["bin"]),
         "gcn_bbf_fbf words 64->7": lambda: fl.gcn_bbf_fbf(
-            h_w, None, w2, adj_b, item_ptr=items["adj"]),
+            h_w, None, w2, adj_b, **items["adj"]),
         "branch_add 500->64": lambda: fl.branch_add(
-            x, bn_x, w1, w1b, adj_b, relu=True, item_ptr=items["adj"]),
+            x, bn_x, w1, w1b, adj_b, relu=True, **items["adj"]),
         "fc 64->7": lambda: fl.fc(x_h, bn_h, w2),
     }
     res, outputs = {}, {}

@@ -30,9 +30,21 @@ Each variant rewrites constants of a source in a copy under
   and 7d (the serve bucket, 89,252 rows, BN by the division) on N(0, 1)
   inputs; every variant's outputs must equal the first one's.
 
-Times are torch.profiler device ms (and CUDA-event ms for ``bmm_xnor`` and
-``fused_fc``), the variants in turns, twice. ``--only bmm|fused|fc`` runs
-one section. Nothing here is part of the port.
+* ``csrc/fused_layer.cu``'s aggregating kinds (rows 7a-7c): the
+  cooperative kernel asking the compiler for 1 or 3 resident blocks a SM
+  (``__launch_bounds__``; the shipped build asks 2), and the two-launch
+  form of each kind: the transform alone (``fused_layer.transform``, the
+  kernel with ``aggregate = 0``), then ``csrc/fused_pair.cu`` with an
+  empty halo matrix (``fused_layer.pair``, its task list built
+  beforehand). ``gcn_bin_l1`` 500 -> 64, ``gcn_bbf_fbf`` on words 64 -> 7
+  and ``branch_add`` 500 -> 64 at the serve bucket of full Flickr, whole
+  and transform-only; the builds' outputs must equal the shipped one's,
+  and whether the two-launch outputs do is printed.
+
+Times are torch.profiler device ms (and CUDA-event ms for ``bmm_xnor``,
+``fused_fc`` and the aggregating kinds), the variants in turns, twice.
+``--only bmm|fused|fc|agg`` runs one section. Nothing here is part of the
+port.
 """
 import ctypes
 import json
@@ -83,6 +95,15 @@ FC_VARIANTS = {
     "8 blocks a SM (32 registers)": {
         FC_BOUNDS: "__launch_bounds__(kFcThreads, 8)"},
 }
+AGG_BOUNDS = r"__launch_bounds__\(kThreads, 2\)\n    fused_layer_kernel"
+AGG_VARIANTS = {
+    "shipped (2 blocks a SM)": {},
+    "1 block a SM": {
+        AGG_BOUNDS: "__launch_bounds__(kThreads, 1)\n    fused_layer_kernel"},
+    "3 blocks a SM": {
+        AGG_BOUNDS: "__launch_bounds__(kThreads, 3)\n    fused_layer_kernel"},
+}
+TWO_LAUNCHES = "two launches (transform, then fused_pair)"
 # fc's rows at 7h (shard 0, BN by the reciprocal) and 7d (the serve bucket)
 FC_SHAPES = (("7h", 24508, True), ("7d", 89252, False))
 # bmm_xnor's (M, N, K) in the five forwards of chip_smoke.py
@@ -171,13 +192,13 @@ def fused_tiles(rng) -> dict:
     w1, w2 = weights(), weights()
     calls = {
         "gcn_bin_l1": lambda: fused_layer.gcn_bin_l1(
-            x, bn, w1, bucket["bin"], item_ptr=items["bin"]),
+            x, bn, w1, bucket["bin"], **items["bin"]),
         "gcn_bin_l1 without BN": lambda: fused_layer.gcn_bin_l1(
-            x, None, w1, bucket["bin"], item_ptr=items["bin"]),
+            x, None, w1, bucket["bin"], **items["bin"]),
         "branch_add": lambda: fused_layer.branch_add(
-            x, bn, w1, w2, bucket["adj"], item_ptr=items["adj"]),
+            x, bn, w1, w2, bucket["adj"], **items["adj"]),
         "branch_add without BN": lambda: fused_layer.branch_add(
-            x, None, w1, w2, bucket["adj"], item_ptr=items["adj"]),
+            x, None, w1, w2, bucket["adj"], **items["adj"]),
     }
     res, first = {}, None
     order = in_turns(FUSED_VARIANTS)
@@ -235,10 +256,97 @@ def fc_variants(rng) -> dict:
     return res
 
 
+def empty_halo(adj):
+    """A halo matrix over the tile-rows of ``adj`` with no group."""
+    none = torch.zeros((0, 8), dtype=torch.int32, device=adj.device)
+    return adj._replace(tiles=none, col_idx=none.clone(),
+                        group_row=torch.zeros(0, dtype=torch.int32,
+                                              device=adj.device),
+                        group_first=torch.zeros(0, dtype=torch.int32,
+                                                device=adj.device),
+                        grp_ptr=torch.zeros_like(adj.grp_ptr), n_cols=0,
+                        nnz=0, row_scale=None, col_scale=None)
+
+
+def agg_variants(rng) -> dict:
+    libs = {name: make("fused_layer", name, subs)
+            for name, subs in AGG_VARIANTS.items()}
+    flickr, n_pad, bucket, items = serve_bucket()
+    f = flickr.x.shape[1]
+    fl = fused_layer
+
+    def card(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def words(rows, nbits):
+        return bitops.pack_bits(card(rng.integers(0, 2, (rows, nbits))))
+
+    def weights(n_out, n_in):
+        return BinTensor(words(n_out, n_in), card(rng.uniform(
+            0.5, 1.5, (n_out, 1)).astype(np.float32)), n_in)
+    x = card(rng.standard_normal((n_pad, f)).astype(np.float32))
+    bn = (card(0.1 * rng.standard_normal((1, f)).astype(np.float32)),
+          card(rng.uniform(0.5, 2.0, (1, f)).astype(np.float32)))
+    h_w = words(n_pad, 64)
+    w1, w1b, w2 = weights(64, f), weights(64, f), weights(flickr.n_classes, 64)
+    bin_b, adj_b = bucket["bin"], bucket["adj"]
+    halo = {k: empty_halo(m) for k, m in bucket.items()}
+    pairs = {k: fl.pair_items(m, halo[k]) for k, m in bucket.items()}
+    # the pair kernel's rem: a few rows that no empty halo group reads
+    rem_f = torch.zeros((4, 64), device=dev)
+    rem_w = torch.zeros((4, 2), dtype=torch.int32, device=dev)
+    rem_c = torch.zeros((4, flickr.n_classes), device=dev)
+    calls = {   # name: (one launch, two launches)
+        "7a gcn_bin_l1 500->64": (
+            lambda: fl.gcn_bin_l1(x, bn, w1, bin_b, **items["bin"]),
+            lambda: fl.pair(fl.transform(x, bn, w1, fbb=True), None, rem_w,
+                            bin_b, halo["bin"], pairs["bin"], n_out=64)),
+        "7b gcn_bbf_fbf words 64->7": (
+            lambda: fl.gcn_bbf_fbf(h_w, None, w2, adj_b, **items["adj"]),
+            lambda: fl.pair(fl.transform(h_w, None, w2), None, rem_c, adj_b,
+                            halo["adj"], pairs["adj"])),
+        "7c branch_add 500->64": (
+            lambda: fl.branch_add(x, bn, w1, w1b, adj_b, relu=True,
+                                  **items["adj"]),
+            lambda: fl.pair(*fl.transform(x, bn, w1b, w_self=w1),
+                            rem_f, adj_b, halo["adj"],
+                            pairs["adj"], relu=True)),
+    }
+    res, first = {}, None
+    order = in_turns(AGG_VARIANTS)
+    for name in order:
+        build._LIBS["fused_layer"] = libs[name]
+        outs = [one() for one, _ in calls.values()]
+        if first is None:
+            first = outs
+        elif not all(torch.equal(a, b) for a, b in zip(outs, first)):
+            sys.exit(f"xform_variants: {name}'s outputs differ from {order[0]}'s")
+        row = res.setdefault(name, {})
+        row["attributes fbb"] = fl.attributes(f, fbb=True)
+        row["attributes bbf self"] = fl.attributes(f, self_branch=True)
+        row["attributes bbf 64"] = fl.attributes(64)
+        for cname, (one, _) in calls.items():
+            for unit, timer in (("ms", cuda_ms), ("device ms", device_ms)):
+                row.setdefault(f"{cname} whole {unit}", []).append(
+                    timer(torch, one))
+            with transform_only(build):
+                row.setdefault(f"{cname} transform device ms", []).append(
+                    device_ms(torch, one))
+        if name == order[0]:   # the shipped build's turns
+            two = res.setdefault(TWO_LAUNCHES, {})
+            for (cname, (_, pair2)), want in zip(calls.items(), first):
+                two[f"{cname} bit-equal to one launch"] = bool(
+                    torch.equal(pair2(), want))
+                for unit, timer in (("ms", cuda_ms), ("device ms", device_ms)):
+                    two.setdefault(f"{cname} {unit}", []).append(
+                        timer(torch, pair2))
+    return res
+
+
 def main():
     only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv \
         else None
-    build.build_all(["bmm", "fused_layer"])
+    build.build_all(["bmm", "fused_layer", "fused_pair"])
     rng = np.random.default_rng(14)
     if only in (None, "bmm"):
         print("bmm_xnor routes: " + json.dumps(bmm_routes(rng), indent=1),
@@ -248,6 +356,8 @@ def main():
                                                      indent=1), flush=True)
     if only in (None, "fc"):
         print("fc launch: " + json.dumps(fc_variants(rng), indent=1))
+    if only in (None, "agg"):
+        print("aggregating kinds: " + json.dumps(agg_variants(rng), indent=1))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip())
