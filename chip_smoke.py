@@ -202,7 +202,11 @@ result):
    ``torch.cuda.max_memory_allocated()`` over the same step on the card
    (above what lived before its arguments were built; two steps from fresh
    arguments): the phase fails where an estimate sits more than 15% below
-   a measured peak.
+   a measured peak. Then one train step of qwen2-moe-a2.7b at full width
+   cut to 2 layers with global dispatch (``moe_groups=0``, batch 8 x 128,
+   AdamW) on plain tensors and under ``param_shardings(fsdp=True)`` on the
+   1 x 1 host mesh, from one seeded state and batch: the two losses must
+   be bit-equal.
 
 19. the LM mesh paths (``run_lm_mesh``) — no GNN kernel runs. Gloo ranks
    share the one card (NCCL refuses two ranks on one GPU); a probe world
@@ -228,10 +232,9 @@ result):
    in this process, equal to what the ranks gathered (SHA-256 a leaf);
    prints ms a sharded step, collective bytes a step and peak memory a
    rank. (c) the A3 dry-run cell: ``run_cell(qwen2-moe-a2.7b, train_4k,
-   single)`` with ``moe_groups`` -1 at full depth without probes: per-device
-   peak and collective bytes by op, and a failure fails the run; the same
-   with ``moe_groups`` 0, whose error is printed beside its known reason
-   (torch 2.11's DTensor has no ``aten.index_put_`` strategy).
+   single)`` with ``moe_groups`` -1 and 0 (the global dispatch) at full
+   depth without probes: per-device peak and collective bytes by op; a
+   failure of either fails the run.
 20. the example twins (``run_examples``) — first ``ops.launch_stats`` of
    one GCN "bin" bucket forward of serve ways (a) and (c) (32 seeds, full
    Flickr): aten ops and kernel entries, per call and per layer, each
@@ -340,6 +343,7 @@ REMAT_TOL = 1e-2           # phase 16 (c): remat grads, of each leaf's max |g|
 DRY_SERVE_ARCH = "stablelm-1.6b"   # phase 17 (a): launch/serve.py's default
 DRY_DECODE = (4, 512)      # phase 17 (b): decode batch, cache length (15a's)
 DRY_UNDER = 0.15           # phase 17 (b): the most an estimate may fall short
+DRY_MOE = (8, 128)         # phase 17 (b): the MoE step's batch and tokens
 # phase 13: model -> (training forward, family, adjacency kinds, epochs, lr),
 # the recipes of benchmarks/accuracy_experiment.py
 TRAIN = {"FP32": ("gcn_forward_fp", "gcn", ("gcn",), 150, 1e-2),
@@ -3692,7 +3696,77 @@ def run_dryrun(torch) -> None:
         raise AssertionError(f"phase 17b: an estimate sits more than "
                              f"{DRY_UNDER:.0%} below the measured peak: "
                              f"{rows}")
+    moe = moe_placed_step(torch)
+    log(f"phase 17b {EP_ARCH} train step under placements on 1 x 1 "
+        f"({card}): " + json.dumps(moe))
+    if moe["plain_loss"] != moe["placed_loss"]:
+        raise AssertionError(f"phase 17b: the MoE step's loss under "
+                             f"placements is not the plain step's: {moe}")
     log(f"phase 17: {time.perf_counter() - t_start:.1f} s ({card})")
+
+
+def moe_placed_step(torch) -> dict:
+    """Phase 17 (b)'s MoE step: one train step of ``EP_ARCH`` at full width
+    cut to ``EP_LAYERS`` layers with global dispatch (``moe_groups=0``),
+    from one seeded state and batch (``DRY_MOE``), on plain tensors and
+    then under ``param_shardings(fsdp=True)`` on the 1 x 1 host mesh.
+    Returns both losses (the caller holds them equal), each step's host
+    ms and the bytes still allocated after both."""
+    import contextlib
+    import dataclasses
+
+    import numpy as np
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.checkpoint.checkpointer import _place
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer
+    from repro_torch.optim.optimizer import AdamW
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = dataclasses.replace(token_config(EP_ARCH), n_layers=EP_LAYERS,
+                              moe_groups=0)
+    opt = AdamW(lr=LM_LR, clip_norm=1.0)
+    step = make_train_step(cfg, opt, unroll=False)
+    b, t = DRY_MOE
+    sample = SyntheticLM(cfg.vocab, t).sample(np.random.default_rng(SEED), b)
+
+    def one(mesh):
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        params = transformer.init_params(cfg, gen, DEVICE)
+        state = (params, opt.init(params))
+        batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in sample.items()}
+        if mesh is not None:
+            p_sh = sharding.param_shardings(params, mesh, fsdp=True)
+            state = place_tree(state, (p_sh, sharding.opt_shardings(p_sh,
+                                                                     mesh)))
+            batch = sharding.zip_map(lambda v, pl: _place(v, mesh, pl),
+                                     batch, sharding.data_shardings(batch,
+                                                                    mesh))
+        sync(torch, DEVICE)
+        t0 = time.perf_counter()
+        with implicit_replication() if mesh is not None \
+                else contextlib.nullcontext():
+            _, _, metrics = step(*state, batch)
+        loss = metrics["loss"]
+        loss = loss.full_tensor() if hasattr(loss, "full_tensor") else loss
+        loss = float(loss)
+        sync(torch, DEVICE)
+        return loss, (time.perf_counter() - t0) * 1e3
+
+    on_card = DEVICE == "cuda"
+    base = torch.cuda.memory_allocated() if on_card else 0
+    plain_loss, plain_ms = one(None)
+    with make_host_mesh(device=torch.device(DEVICE).type) as mesh:
+        placed_loss, placed_ms = one(mesh)
+    if on_card:     # phase 19's ranks share the card: return what was cached
+        torch.cuda.empty_cache()
+    return dict(layers=EP_LAYERS, batch=b, tokens=t, moe_groups=0,
+                plain_loss=plain_loss, placed_loss=placed_loss,
+                plain_ms=plain_ms, placed_ms=placed_ms,
+                left_allocated=(torch.cuda.memory_allocated() - base
+                                if on_card else 0))
 
 
 def gather_probe_rank(rank: int, device: str) -> bool:
@@ -4109,27 +4183,19 @@ def run_lm_mesh(torch, lm_losses) -> None:
             collectives_by_op=res["collectives_scanned_program"],
             s=time.perf_counter() - t0)
 
-    cells = {-1: cell(-1)}           # the A3 cell: a failure fails the run
-    t0 = time.perf_counter()
-    try:
-        cells[0] = cell(0)
-    except Exception as e:
-        # the global dispatch scatters with index_put_, for which torch
-        # 2.11's DTensor has no sharding strategy: printed, not held
-        cells[0] = dict(error=f"{type(e).__name__}: {e}"[:800],
-                        known="no aten.index_put_ strategy in DTensor on "
-                              "torch 2.11", s=time.perf_counter() - t0)
-    # the failed cell's checkpointed blocks must leave no saved-tensor
-    # hooks behind (torch before 2.13 does, unless models.transformer's
-    # _remat closes them): a later backward would recompute its block
+    cells = {g: cell(g) for g in (-1, 0)}  # a failure fails the run
+    # the cells' checkpointed blocks must leave no saved-tensor hooks
+    # behind (torch before 2.13 does where a block raises, unless
+    # models.transformer's _remat closes them): a later backward would
+    # recompute the block
     top = torch._C._autograd._top_saved_tensors_default_hooks
     try:
         left = top(False)
     except TypeError:
         left = top()
     if left is not None:
-        raise AssertionError("phase 19c: the failed cell left saved-tensor "
-                             "hooks installed")
+        raise AssertionError("phase 19c: a cell left saved-tensor hooks "
+                             "installed")
     log(f"phase 19c {EP_ARCH} train_4k single, moe_groups -1 (A3) and 0, "
         f"full depth, no probes: " + json.dumps(cells))
     log(f"phase 19: {time.perf_counter() - t_start:.1f} s ({card})")

@@ -50,7 +50,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import functools
 import json
 import sys
 import time
@@ -145,23 +144,6 @@ class _StepTrace(hlo_analysis.CollectiveRecorder):
                           or id(t.untyped_storage()) not in seen)
 
 
-@functools.cache
-def _register_rules() -> None:
-    """Sharding rules DTensor lacks for ops the models run: ``searchsorted``
-    (the MoE dispatch, ``models/moe.py``) on a replicated sorted sequence,
-    its output sharded as its input. Registered once a process."""
-    from torch.distributed.tensor import Replicate, Shard
-    from torch.distributed.tensor.experimental import register_sharding
-    aten = torch.ops.aten
-
-    @register_sharding(aten.searchsorted.Tensor)
-    def searchsorted(sorted_sequence, values, *args, **kwargs):
-        rules = [([Replicate()], [Replicate(), Replicate()])]
-        rules += [([Shard(d)], [Replicate(), Shard(d)])
-                  for d in range(len(values.tensor_meta.shape))]
-        return rules
-
-
 def _place(tree, placements, mesh):
     """The meta tensors of ``tree`` as DTensors with ``placements``: each
     a local meta tensor of this rank's shard shape."""
@@ -195,7 +177,6 @@ def _trace_cell(cfg, shape, mesh, opts, unroll: bool, opt=None) -> dict:
     from ..quant.binary_linear import quantize_params
     from ..train import train_step as ts
 
-    _register_rules()
     dp = ("pod", "data") if "pod" in mesh.mesh_dim_names else "data"
     boundary = sharding.placements((dp, "model", None), mesh) \
         if opts["seq_shard"] else None

@@ -15,6 +15,7 @@ fixed order. Replays are bit-equal.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -95,111 +96,178 @@ def _experts(params, xe: torch.Tensor, cfg: ModelConfig, spec_in: str,
     return einsum(spec_out, h, params["wo"])
 
 
-def moe_block(params, x: torch.Tensor, cfg: ModelConfig):
-    """x: (B, T, d) -> (B, T, d). Dispatch is GLOBAL by default;
-    ``cfg.moe_groups > 1`` switches to per-group dispatch (the reference's
-    per-data-shard form, here on one device); ``cfg.moe_groups == -1`` is
-    the expert-parallel form (:func:`_moe_shard_map`) where the experts
-    are DTensors on a mesh with a ``model`` dim, and the global dispatch
-    elsewhere, as in the reference."""
-    if getattr(cfg, "moe_groups", 0) == -1:
-        return _moe_shard_map(params, x, cfg)
-    if getattr(cfg, "moe_groups", 0) > 1:
-        return _moe_grouped(params, x, cfg)
-    b, t, d = x.shape
-    n = b * t
-    e = cfg.moe_experts_padded or cfg.moe_experts
-    k = cfg.moe_top_k
-    flat = x.reshape(n, d)
-
-    gate_vals, expert_idx = _route(flat, params["router"], cfg, e, k)
-    cap = _capacity(n, e, k, cfg.capacity_factor)
-
+def _slots(xe: torch.Tensor, flat: torch.Tensor, gate_vals: torch.Tensor,
+           expert_idx: torch.Tensor, e: int, cap: int):
+    """Dispatch, Xe = D^T @ X: writes the (n, d) rows of ``flat`` into
+    their experts' capacity slots of ``xe`` (e * cap + 1, d), a choice past
+    its expert's capacity into the trash slot e * cap; returns the plan
+    :func:`_unslot` combines by."""
+    n, d = flat.shape
+    k = expert_idx.shape[-1]
     fe = expert_idx.reshape(-1)                                    # (N*k,)
-    ft = torch.repeat_interleave(torch.arange(n, device=x.device), k)
-    fg = gate_vals.reshape(-1).to(x.dtype)
+    ft = torch.repeat_interleave(torch.arange(n, device=flat.device), k)
+    fg = gate_vals.reshape(-1).to(flat.dtype)
     order, slot, keep = _dispatch(fe, e, cap)
     st, sg = ft[order], fg[order]
-
-    # dispatch: Xe = D^T @ X (the trash slot e * cap is dropped)
-    xe = x.new_zeros((e * cap + 1, d))
     xe[slot] = flat[st]
-    xe = xe[:-1].reshape(e, cap, d)
+    return order, slot, keep, sg
 
-    ye = _experts(params, xe, cfg, "ecd,edf->ecf", "ecf,efd->ecd")
 
-    # combine: Y = (D * gates) @ Ye
-    y_tok = ye.reshape(e * cap, d)[torch.clamp(slot, max=e * cap - 1)]
-    y_tok = y_tok * (sg * keep.to(x.dtype))[:, None]
-    out = _combine(y_tok, order, n, k)
+def _unslot(ye: torch.Tensor, plan, n: int, k: int) -> torch.Tensor:
+    """Combine, Y = (D * gates) @ Ye: the (n, d) tokens' gated expert rows
+    of ``ye`` (e, cap, d), summed by :func:`_combine`."""
+    order, slot, keep, sg = plan
+    e, cap, d = ye.shape
+    rows = ye.reshape(e * cap, d)[torch.clamp(slot, max=e * cap - 1)]
+    return _combine(rows * (sg * keep.to(sg.dtype))[:, None], order, n, k)
 
+
+def _moe_groups(params, router, flat: torch.Tensor, cfg: ModelConfig,
+                experts):
+    """Routing, dispatch and combine of the (g, nl, d) groups of ``flat``,
+    each group on its own (capacity over its nl tokens): the (g * nl, d)
+    output. ``experts(xe)`` runs the experts on the (g, e, cap, d) slots
+    and returns their (g, e, cap, d) rows."""
+    g, nl, d = flat.shape
+    e = cfg.moe_experts_padded or cfg.moe_experts
+    k = cfg.moe_top_k
+    gate_vals, expert_idx = _route(flat, router, cfg, e, k)
+    cap = _capacity(nl, e, k, cfg.capacity_factor)
+    xe = flat.new_zeros((g, e * cap + 1, d))
+    plans = [_slots(xe[i], flat[i], gate_vals[i], expert_idx[i], e, cap)
+             for i in range(g)]
+    ye = experts(xe[:, :-1].reshape(g, e, cap, d))
+    outs = [_unslot(ye[i], plan, nl, k) for i, plan in enumerate(plans)]
+    return outs[0] if g == 1 else torch.cat(outs)
+
+
+def moe_block(params, x: torch.Tensor, cfg: ModelConfig):
+    """x: (B, T, d) -> (B, T, d). Dispatch is GLOBAL by default (one group
+    of all B * T tokens); ``cfg.moe_groups > 1`` switches to per-group
+    dispatch (the reference's per-data-shard form); ``cfg.moe_groups ==
+    -1`` is the expert-parallel form (:func:`_moe_shard_map`) where the
+    experts are DTensors on a mesh with a ``model`` dim, and the global
+    dispatch elsewhere, as in the reference. Where ``x`` or the parameters
+    are DTensors the global and grouped forms run as :func:`_moe_on_mesh`
+    lays them out."""
+    groups = getattr(cfg, "moe_groups", 0)
+    if groups == -1:
+        return _moe_shard_map(params, x, cfg)
+    mesh = _mesh_of(x, params["router"], params["wi"])
+    if mesh is not None:
+        return _moe_on_mesh(params, x, cfg, mesh)
+    b, t, d = x.shape
+    flat = x.reshape(max(groups, 1), -1, d)
+    out = _moe_groups(params, params["router"], flat, cfg,
+                      lambda xe: _experts(params, xe, cfg, "gecd,edf->gecf",
+                                          "gecf,efd->gecd"))
+    out = out.reshape(b, t, d)
     if "shared_wi" in params:
-        out = out + _shared_expert(params, flat, cfg)
-    return out.reshape(b, t, d)
+        # the global form's shared expert reads the dispatch's view, the
+        # grouped form's reads x: each form's token gradient sums its
+        # terms in the order it always has
+        shared = _shared_expert(params, flat if groups <= 1 else x, cfg)
+        out = out + shared.reshape(b, t, d)
+    return out
 
 
-def _shared_expert(params, flat, cfg):
-    h = activate(linear(params["shared_wi"], flat), cfg.act)
+def _moe_on_mesh(params, x: torch.Tensor, cfg: ModelConfig, mesh):
+    """The global and grouped dispatch where ``x`` or the parameters are
+    DTensors on ``mesh``, laid out as the reference constrains it.
+    Routing, dispatch and combine run on local tensors, laid out by
+    ``rows``; the experts and the shared expert run on DTensors.
+
+    ``rows``: the global dispatch ranks every token against all the others
+    (capacity over all B * T tokens), so every rank gathers all of them
+    and dispatches them alike, as GSPMD gathers them. The grouped form
+    keeps the mesh dims that shard ``x``'s batch where a shard holds whole
+    groups (its groups are then the reference's data shards), else it
+    gathers the tokens too. Where the mesh has a ``model`` dim, the slots
+    then take the reference's constraint (``src/repro/models/moe.py``:
+    the global form's (e, cap, d) slots experts over ``model`` and
+    capacity over ``data``, the grouped form's (g, e, cap, d) groups over
+    ``data`` and experts over ``model``; a dim that a mesh dim does not
+    split evenly stays whole), a local slice of the slots a rank holds;
+    the experts' rows are gathered back for the combine. Every rank runs
+    the ops one process runs on its groups, on the same values: the output
+    and the gradients are the one-process block's, but for sums over a dim
+    that the placements shard (FSDP's ``d`` in the experts' products, the
+    rows a replicated weight is used on), which add parts."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from ..distributed import sharding
+
+    b, t, d = x.shape
+    g = max(getattr(cfg, "moe_groups", 0), 1)
+    x_pl = list(x.placements) if isinstance(x, DTensor) \
+        else [Replicate()] * mesh.ndim
+    rows = [p if g > 1 and p == Shard(0) else Replicate() for p in x_pl]
+    s = math.prod(mesh.size(i) for i, p in enumerate(rows) if p.is_shard())
+    if g % s or b % s:
+        rows, s = [Replicate()] * mesh.ndim, 1
+    # a rank's gradient is its own rows' where it holds a shard of them;
+    # the router's, used on those rows alone, is a partial sum there
+    flat = _placed(x, mesh, rows).to_local(grad_placements=rows)
+    router = _placed(params["router"], mesh, [Replicate()] * mesh.ndim) \
+        .to_local(grad_placements=[Partial() if p.is_shard() else p
+                                   for p in rows])
+
+    spec = (None, "model", "data", None) if g == 1 \
+        else ("data", "model", None, None)
+
+    def experts(xe):
+        xe = DTensor.from_local(xe, mesh, rows, run_check=False)
+        if "model" in mesh.mesh_dim_names:
+            xe = _placed(xe, mesh, [
+                p if not p.is_shard() or xe.shape[p.dim] % mesh.size(i) == 0
+                else Replicate()
+                for i, p in enumerate(sharding.placements(spec, mesh))])
+        ye = _experts(params, xe, cfg, "gecd,edf->gecf", "gecf,efd->gecd")
+        return ye.redistribute(mesh, rows).to_local(grad_placements=rows)
+
+    out = _moe_groups(params, router, flat.reshape(g // s, -1, d), cfg,
+                      experts)
+    # in x's placements (replicated where x is a partial sum)
+    out = DTensor.from_local(out.reshape(-1, t, d), mesh, rows,
+                             run_check=False).redistribute(
+        mesh, [Replicate() if p.is_partial() else p for p in x_pl])
+    if "shared_wi" in params:
+        out = out + _shared_expert(params, x, cfg)
+    return out if isinstance(x, DTensor) else out.full_tensor()
+
+
+def _placed(v, mesh, pl):
+    """``v`` as a DTensor on ``mesh`` in the placements ``pl`` (a plain
+    tensor counts as replicated)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(v, DTensor):
+        v = DTensor.from_local(v, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return v if list(v.placements) == pl else v.redistribute(mesh, pl)
+
+
+def _shared_expert(params, x, cfg):
+    h = activate(linear(params["shared_wi"], x), cfg.act)
     shared = linear(params["shared_wo"], h)
-    sgate = torch.sigmoid(matmul(flat, params["shared_gate"]))
+    sgate = torch.sigmoid(matmul(x, params["shared_gate"]))
     return shared * sgate
 
 
-def _moe_grouped(params, x: torch.Tensor, cfg: ModelConfig):
-    """Per-group dispatch: tokens are split into ``moe_groups`` groups;
-    routing, capacity, sort, gather and combine are all group-local (the
-    reference aligns the groups with its data-parallel axis; on one device
-    the math is the same)."""
-    b, t, d = x.shape
-    n = b * t
-    g = cfg.moe_groups
-    e = cfg.moe_experts_padded or cfg.moe_experts
-    k = cfg.moe_top_k
-    nl = n // g
-    flat = x.reshape(g, nl, d)
-
-    gate_vals, expert_idx = _route(flat, params["router"], cfg, e, k)
-    cap = _capacity(nl, e, k, cfg.capacity_factor)
-
-    xe = x.new_zeros((g, e * cap + 1, d))
-    ft = torch.repeat_interleave(torch.arange(nl, device=x.device), k)
-    plans = []
-    for gi in range(g):
-        fe = expert_idx[gi].reshape(-1)
-        fg = gate_vals[gi].reshape(-1).to(x.dtype)
-        order, slot, keep = _dispatch(fe, e, cap)
-        st, sg = ft[order], fg[order]
-        xe[gi, slot] = flat[gi, st]
-        plans.append((order, slot, keep, sg))
-    xe = xe[:, :-1].reshape(g, e, cap, d)
-
-    ye = _experts(params, xe, cfg, "gecd,edf->gecf", "gecf,efd->gecd")
-
-    outs = []
-    for gi, (order, slot, keep, sg) in enumerate(plans):
-        y_rows = ye[gi].reshape(e * cap, d)[torch.clamp(slot,
-                                                        max=e * cap - 1)]
-        y_rows = y_rows * (sg * keep.to(x.dtype))[:, None]
-        outs.append(_combine(y_rows, order, nl, k))
-    out = torch.stack(outs).reshape(n, d)
-
-    if "shared_wi" in params:
-        out = out + _shared_expert(params, x.reshape(n, d), cfg)
-    return out.reshape(b, t, d)
+def _mesh_of(*ts):
+    """The device mesh of the first DTensor among ``ts``, or None."""
+    if all(type(t) is torch.Tensor for t in ts):
+        return None
+    from torch.distributed.tensor import DTensor
+    return next((t.device_mesh for t in ts if isinstance(t, DTensor)), None)
 
 
 def _model_mesh(*ts):
     """The device mesh of the first DTensor among ``ts`` when it has a
     ``model`` dim, else None (the port's stand-in for the reference's
     abstract mesh in context)."""
-    if all(type(t) is torch.Tensor for t in ts):
-        return None
-    from torch.distributed.tensor import DTensor
-    for t in ts:
-        if isinstance(t, DTensor):
-            mesh = t.device_mesh
-            return mesh if "model" in (mesh.mesh_dim_names or ()) else None
-    return None
+    mesh = _mesh_of(*ts)
+    return mesh if mesh is not None and "model" in (
+        mesh.mesh_dim_names or ()) else None
 
 
 def _moe_shard_map(params, x: torch.Tensor, cfg: ModelConfig):
@@ -235,12 +303,6 @@ def _moe_shard_map(params, x: torch.Tensor, cfg: ModelConfig):
     e_loc = e // tp
     e0 = mesh.get_local_rank(m_dim) * e_loc
 
-    def placed(v, pl):
-        if not isinstance(v, DTensor):
-            v = DTensor.from_local(v, mesh, [Replicate()] * mesh.ndim,
-                                   run_check=False)
-        return v if list(v.placements) == pl else v.redistribute(mesh, pl)
-
     def over_model(on_model, elsewhere):
         return [on_model if i == m_dim else elsewhere
                 for i in range(mesh.ndim)]
@@ -250,7 +312,7 @@ def _moe_shard_map(params, x: torch.Tensor, cfg: ModelConfig):
     # alone is a partial sum over the dims it is replicated on. The
     # tokens split by batch rows, the reference's split of B * T rows.
     rows = over_model(Replicate(), Shard(0))
-    xr = placed(x, rows)
+    xr = _placed(x, mesh, rows)
     # the tokens' gradient is summed over model at this boundary, one
     # all-reduce in the backward (the transpose of the reference's
     # replicated in_spec), not left partial for the ops before it
@@ -258,10 +320,12 @@ def _moe_shard_map(params, x: torch.Tensor, cfg: ModelConfig):
                             shape=xr.shape, stride=xr.stride())
     flat = xr.to_local(
         grad_placements=over_model(Partial(), Shard(0))).reshape(-1, d)
-    router = placed(params["router"], [Replicate()] * mesh.ndim).to_local(
+    router = _placed(params["router"], mesh,
+                     [Replicate()] * mesh.ndim).to_local(
         grad_placements=[Partial()] * mesh.ndim)
-    local_p = {w: placed(params[w], over_model(Shard(0), Replicate()))
-               .to_local(grad_placements=over_model(Shard(0), Partial()))
+    local_p = {w: _placed(params[w], mesh,
+                          over_model(Shard(0), Replicate())).to_local(
+                              grad_placements=over_model(Shard(0), Partial()))
                for w in ("wi", "wo")}
 
     nl = flat.shape[0]

@@ -328,3 +328,105 @@ def fail_in_trainer(rank, ckpt_dir):
         return tr.run_with_restarts(lambda: t)
     finally:
         t.loader.close()
+
+
+def moe_forward_one_rank(rank, arch, groups):
+    """``transformer.forward`` of ``reduced_config(arch)`` at ``groups``
+    on plain tensors, then with the parameters placed by
+    ``param_placements(fsdp=True)`` and the tokens by ``data_shardings`` on
+    a one-rank gloo mesh, through the entry points alone (no dry run in
+    this fresh process): both logits, and whether a dry run was loaded."""
+    os.nice(10)
+    import sys
+
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.checkpoint.checkpointer import _place
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(reduced_config(get_config(arch)),
+                              moe_groups=groups).resolve_for_mesh(tp=1)
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     "cpu")
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 8)).astype(np.int32)
+    want = transformer.forward(params, cfg, torch.from_numpy(tokens))
+    with make_host_mesh(device="cpu") as mesh:
+        pl = sharding.param_placements(params, mesh, fsdp=True)
+        dparams = sharding.zip_map(lambda v, p: _place(v, mesh, p), params,
+                                   pl)
+        dtok = _place(tokens, mesh, sharding.data_shardings(tokens, mesh))
+        with implicit_replication():
+            got = transformer.forward(
+                dparams, cfg, dtok,
+                boundary_sharding=sharding.placements(
+                    ("data", "model", None), mesh),
+                logits_sharding=sharding.logits_sharding(mesh, 2))
+        is_dtensor = "DTensor" in type(got).__name__
+        got = got.full_tensor()
+    return {"want": want.detach().float().numpy(),
+            "got": got.detach().float().numpy(),
+            "is_dtensor": is_dtensor,
+            "dryrun_loaded": "repro_torch.launch.dryrun" in sys.modules}
+
+
+def moe_op_audit(rank):
+    """``tools/dtensor_rules.py``'s audit of the MoE block here: the aten
+    ops that reach DTensor at each ``moe_groups`` and how they ran."""
+    os.nice(10)
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "tools" / "dtensor_rules.py"
+    spec = importlib.util.spec_from_file_location("dtensor_rules", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return {"ops": {g: tool.audit("cpu", g) for g in tool.GROUPS}}
+
+
+def moe_block_world(rank, groups, fsdp):
+    """The MoE block of :func:`moe_cfg` at ``groups`` on a (2, 1) mesh:
+    the parameters placed by ``param_placements(fsdp=...)``, the tokens
+    over data. The output and the loss ``sum(out * r)`` gathered, and the
+    token and parameter gradients gathered, each in its placements."""
+    os.nice(10)
+    import torch
+    from repro_torch.checkpoint.checkpointer import _place
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.moe import moe_block
+
+    cfg = moe_cfg(_torch_cfgs(), groups)
+    p, x, r = moe_inputs(cfg)
+    with make_host_mesh(device="cpu") as mesh:
+        pl = sharding.param_placements({"moe": p}, mesh, fsdp=fsdp)["moe"]
+        pd = {k: _place(v, mesh, pl[k]).requires_grad_(True)
+              for k, v in p.items()}
+        xd = _place(x, mesh, sharding.placements(("data", None, None), mesh)
+                    ).requires_grad_(True)
+        y = moe_block(pd, xd, cfg)
+        out = y.full_tensor()
+        loss = (out * torch.from_numpy(r)).sum()
+        loss.backward()
+        grads = sharding.match_placements({k: v.grad for k, v in pd.items()},
+                                          pd)
+        return {"out": out.detach().numpy(), "loss": float(loss),
+                "x_grad": xd.grad.full_tensor().numpy(),
+                "grads": {k: g.full_tensor().numpy()
+                          for k, g in grads.items()},
+                "placements": [str(q) for q in y.placements],
+                "grad_placements": {k: [str(q) for q in v.placements]
+                                    for k, v in grads.items()},
+                "param_placements": {k: [str(q) for q in v.placements]
+                                     for k, v in pd.items()}}
+
+
+def moe_train_world(rank, ckpt_dir):
+    """:func:`train_world` on reduced qwen2-moe-a2.7b with global dispatch
+    (``moe_groups=0``), restored under FSDP placements over (2, 1)."""
+    os.nice(10)
+    return train_world(rank, "qwen2-moe-a2.7b", ckpt_dir, model=1, fsdp=True,
+                       total=4, ckpt_every=2, fail_at=2, moe_groups=0)
