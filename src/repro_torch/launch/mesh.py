@@ -34,6 +34,11 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+POLL_S = 0.05   # how often run_ranks looks at its ranks
+# After the first rank exits non-zero, how long run_ranks waits for the
+# others to go down before it names the rank that failed first.
+GRACE_S = 5.0
+
 
 @contextlib.contextmanager
 def _world(size: int, backend: str):
@@ -158,8 +163,9 @@ def run_ranks(fn, n: int, *args, backend: str = "gloo",
     fresh temporary directory (no port to collide on). On the card the
     parent builds the kernels first, so the ranks do not compile them at
     once. A rank that raises, exits non-zero or runs past ``timeout_s``
-    ends them all, and the error names the rank and carries its
-    traceback: no partial result is returned."""
+    ends them all: the error names the rank whose error was stamped
+    first, once the world is down or ``GRACE_S`` has passed, and carries
+    its traceback; no partial result is returned."""
     import torch.multiprocessing as mp
 
     if device.startswith("cuda"):
@@ -174,28 +180,37 @@ def run_ranks(fn, n: int, *args, backend: str = "gloo",
                              args=(fn, r, n, args, backend, device, root))
             pr.start()
             procs.append(pr)
-        deadline = time.monotonic() + timeout_s
-        while any(pr.is_alive() for pr in procs) \
-                and _failed(procs) is None and time.monotonic() < deadline:
-            time.sleep(0.05)
-        if _failed(procs) is not None:
-            _raise_first(procs, root)
-        late = [r for r, pr in enumerate(procs) if pr.is_alive()]
-        if late:
-            raise TimeoutError(f"ranks {late} of {n} still running after "
-                               f"{timeout_s} s")
-        results = [_read_rank(root, r) for r in range(n)]
-        missing = [r for r, res in enumerate(results) if res is None]
-        if missing:
-            raise RuntimeError(f"ranks {missing} of {n} exited without a "
-                               f"result")
-        return [res[1] for res in results]
+        return _gather(procs, root, timeout_s)
     finally:
         for pr in procs:
             if pr.is_alive():
                 pr.kill()
             pr.join()
         shutil.rmtree(root, ignore_errors=True)
+
+
+def _gather(procs, root: str, timeout_s: float) -> list:
+    """The results of the ranks ``procs`` (anything with ``exitcode`` and
+    ``is_alive()``) in rank order, read from ``root`` once every rank has
+    exited 0; raises at the first rank to exit non-zero, or after
+    ``timeout_s``."""
+    n = len(procs)
+    deadline = time.monotonic() + timeout_s
+    while any(pr.is_alive() for pr in procs) \
+            and _failed(procs) is None and time.monotonic() < deadline:
+        time.sleep(POLL_S)
+    if _failed(procs) is not None:
+        _raise_first(procs, root)
+    late = [r for r, pr in enumerate(procs) if pr.is_alive()]
+    if late:
+        raise TimeoutError(f"ranks {late} of {n} still running after "
+                           f"{timeout_s} s")
+    results = [_read_rank(root, r) for r in range(n)]
+    missing = [r for r, res in enumerate(results) if res is None]
+    if missing:
+        raise RuntimeError(f"ranks {missing} of {n} exited without a "
+                           f"result")
+    return [res[1] for res in results]
 
 
 def _failed(procs):
@@ -205,18 +220,29 @@ def _failed(procs):
 
 
 def _raise_first(procs, root: str) -> None:
-    """Raise for the rank that failed first: of the ranks that exited
-    non-zero, the earliest to record its error (a rank that dies takes
-    the collectives of the others down with it)."""
-    down = [r for r, pr in enumerate(procs) if pr.exitcode not in (None, 0)]
-    res = {r: _read_rank(root, r) for r in down}
-    first = min(down, key=lambda r: res[r][2] if res[r] else float("inf"))
-    tb = f":\n{res[first][1]}" if res[first] else ""
-    others = [r for r in down if r != first]
+    """Raise for the rank that failed first. A rank that dies takes the
+    collectives of the others down with it, and which of them exits first
+    is a race: so wait until every rank has exited, or ``GRACE_S`` has
+    passed, then name the earliest error stamp of every rank that wrote
+    one, exited or not. A rank that exited non-zero without a result
+    (killed, or crashed in C) comes after every stamp."""
+    end = time.monotonic() + GRACE_S
+    while any(pr.is_alive() for pr in procs) and time.monotonic() < end:
+        time.sleep(POLL_S)
+    res = {r: _read_rank(root, r) for r in range(len(procs))}
+    errors = {r: out for r, out in res.items()
+              if out is not None and out[0] == "error"}
+    failed = [r for r, pr in enumerate(procs)
+              if r in errors or pr.exitcode not in (None, 0)]
+    first = min(failed, key=lambda r: errors[r][2] if r in errors
+                else float("inf"))
+    code = procs[first].exitcode
+    tb = f":\n{errors[first][1]}" if first in errors else ""
+    others = [r for r in failed if r != first]
     raise RuntimeError(
-        f"rank {first} of {len(procs)} failed (exit code "
-        f"{procs[first].exitcode})"
-        + (f"; ranks {others} failed after it" if others else "") + tb)
+        f"rank {first} of {len(procs)} failed ("
+        + (f"exit code {code}" if code is not None else "still running")
+        + ")" + (f"; ranks {others} failed after it" if others else "") + tb)
 
 
 def _read_rank(root: str, r: int):

@@ -1,4 +1,5 @@
-"""Rank functions of ``tests/test_torch_spmd.py``.
+"""Rank functions of ``tests/test_torch_spmd.py`` (and
+``tests/test_torch_run_ranks.py``'s spawned world).
 
 ``launch.mesh.run_ranks`` starts each rank with ``spawn``, which pickles
 the function by reference: the functions live at module level here, in a
@@ -8,6 +9,7 @@ of one world once and returns numpy results; the test file asserts on
 them against the port's in-process host executor.
 """
 import os
+import time
 
 import numpy as np
 
@@ -179,6 +181,15 @@ def fail_on_rank1(rank):
     """Rank 1 raises; rank 0 returns."""
     if rank == 1:
         raise ValueError("rank 1 was told to fail")
+    return rank
+
+
+def fail_on_rank0(rank):
+    """Rank 0 raises; rank 1 runs on, outside any collective, far past
+    ``run_ranks``'s grace."""
+    if rank == 0:
+        raise ValueError("rank 0 was told to fail")
+    time.sleep(120)
     return rank
 
 
