@@ -8,7 +8,9 @@ Phases (each raises on failure; the script then exits 1 and prints no
 result):
 
 1. build — compile the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
-   per source, in parallel);
+   per source, in parallel; phases 2-4's first), while the host makes the
+   datasets and their FRDC matrices and then runs phases 2-3; phase 4
+   waits for the whole build;
 2. parity — every kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it and at edge cases (N < 4, tail bits,
    empty tile-rows, a ``pad_frdc``-padded matrix, F = 7; the bits kernels
@@ -144,7 +146,10 @@ result):
 15. token tier (``run_token``) — the binary transformer / SSM / MoE stack,
    bf16, seeded weights from a ``torch.Generator`` on the card. It runs
    none of the kernels above: its products are cuBLAS calls, as the
-   reference's are XLA dots. (a) ``stablelm-1.6b`` at full width and depth
+   reference's are XLA dots. Each model runs at the registry's width cut
+   in depth (``depth_cut``: 2 layers, or where a block kind first runs;
+   a line lists each cut), which keeps every check at a fraction of the
+   full depth's host-bound decode. (a) ``stablelm-1.6b`` (2 of 24 layers)
    in one ``TokenStore(max_batch=4, max_len=512, chunk=8)``, registered fp
    and ``quantize=True`` (bit-packed projections); each through
    ``TokenServeEngine(pipeline_depth=1)``: warmup, then 16 requests
@@ -156,12 +161,12 @@ result):
    inside ``strict_guard()`` reads 0 ``host_sync_in_launch``; one
    sequence's teacher-forced logits on the card against the same
    ``decode_chunk`` on the CPU within the reference's rtol = atol = 0.15.
-   (b) ``rwkv6-3b`` at full width and depth through ``TokenSession.run``,
+   (b) ``rwkv6-3b`` (2 of 32 layers) through ``TokenSession.run``,
    fp and quantized: the same bit-equality, and ``decode_chunk`` bit-equal
    to stepwise decode, logits and every cache leaf. (c) every arch of
-   ``configs.ARCHS`` at full width, cut in depth (a ``reduced`` line lists
-   the cuts): finite logits, ``decode_step`` against ``forward`` by the
-   0.15 rule (not vlm, as the reference), and two decodes of
+   ``configs.ARCHS`` at full width, cut in depth the same way: finite
+   logits, ``decode_step`` against ``forward`` by the 0.15 rule (not vlm,
+   as the reference), and two decodes of
    ``qwen2-moe-a2.7b`` bit-equal. Prints tokens/s, TTFT p50/p99, ms a
    decode step (host clock and CUDA events), the device's idle share over
    one chunk (torch.profiler), fp and packed parameter bytes, peak memory
@@ -214,27 +219,30 @@ result):
    gloo, and the phase prints the placements it ran and why. (a) the
    expert-parallel MoE (``moe_groups=-1``): ``qwen2-moe-a2.7b`` at full
    width cut to 2 layers, fp32, B = 2 x 32 tokens, in 2 ranks on a (1, 2)
-   mesh, then 4 ranks on (2, 2); the experts sharded over ``model`` (30 a
-   rank), the rest replicated, the batch over ``data``. Each rank holds its
-   logits against the plain forward on the card (``moe_groups`` 0, or the
-   data size) within 1e-4 of max |logits| with equal argmax, one loss and
-   gradient step (loss within 1e-5 relative; its expert gradients within
-   1e-4 of each leaf's max |g| of the plain gradient's slice), and one
-   all-reduce a MoE layer in the forward; prints ms a forward and a step
-   and the collective bytes a rank. (b) ``Trainer(shardings=)``:
-   ``smollm-135m`` at full width with 16a's recipe in 2 ranks,
-   ``run_with_restarts`` over 8 steps, a checkpoint every 4 and a failure
-   at 4; the restart restores under FSDP placements over (2, 1), or
-   data-parallel ones where the probe refuses the all-gather. Steps 0-3
-   (the fresh start's plain state) bit-equal to 16a's, steps 4-7 within
-   1e-3 relative, every rank's losses equal, every leaf's placements kept
+   mesh, then 4 ranks on (2, 2) (the world of 2 runs (b) after (a),
+   each part checked on its own results); the experts sharded over
+   ``model`` (30 a rank), the rest replicated, the batch over ``data``.
+   Each rank holds its logits against the plain forward on the card
+   (``moe_groups`` 0, or the data size) within 1e-4 of max |logits| with
+   equal argmax, one loss and gradient step (loss within 1e-5 relative;
+   its expert gradients within 1e-4 of each leaf's max |g| of the plain
+   gradient's slice), and one all-reduce a MoE layer in the forward;
+   prints ms a forward and a step and the collective bytes a rank. (b) ``Trainer(shardings=)``:
+   ``smollm-135m`` at full width cut to 2 layers with 16a's recipe in 2
+   ranks, ``run_with_restarts`` over 8 steps, a checkpoint every 4 and a
+   failure at 4; the restart restores under FSDP placements over (2, 1),
+   or data-parallel ones where the probe refuses the all-gather. Steps 0-3
+   (the fresh start's plain state) bit-equal to the same recipe's run in
+   this process (``mesh_reference_losses``), steps 4-7 within 1e-3
+   relative, every rank's losses equal, every leaf's placements kept
    by every step, the final checkpoint written by rank 0 alone and, restored
    in this process, equal to what the ranks gathered (SHA-256 a leaf);
    prints ms a sharded step, collective bytes a step and peak memory a
    rank. (c) the A3 dry-run cell: ``run_cell(qwen2-moe-a2.7b, train_4k,
    single)`` with ``moe_groups`` -1 and 0 (the global dispatch) at full
    depth without probes: per-device peak and collective bytes by op; a
-   failure of either fails the run.
+   failure of either fails the run. The parent traces (c) on meta tensors
+   while the probe's world runs.
 20. the example twins (``run_examples``) — first ``ops.launch_stats`` of
    one GCN "bin" bucket forward of serve ways (a) and (c) (32 seeds, full
    Flickr): aten ops and kernel entries, per call and per layer, each
@@ -243,18 +251,23 @@ result):
    ``quickstart``, ``distributed_gnn_inference`` and ``tune_variants`` at
    their defaults, ``serve_gnn`` and ``serve_sharded`` at ``--scale 1.0``
    (P = 4), ``serve_replicated`` at its defaults, ``serve_llm`` fp and
-   ``--quant``, ``train_lm --layers 30 --steps 60 --fail-at 30`` (a
+   ``--quant``, ``train_lm --layers 6 --steps 60 --fail-at 30`` (a
    checkpoint at 20, one restart). Each twin holds every assert of its
    JAX example, and any failure fails the run; prints each twin's wall
    seconds and key figures (QPS, p50, tokens/s, final loss, restarts),
    and the rows 1-4 kernels must have launched.
 
 Output: a JSON line with one record per kernel, the card's name and power
-limit from nvidia-smi, and last the line
+limit from nvidia-smi, a ``walls:`` record of each phase's seconds (within
+it those of reference work, timing loops and the worlds' start-up; a
+record, not a gate), and last the line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -267,6 +280,7 @@ ROOT = Path(__file__).resolve().parent
 HIDDEN = 64          # the paper's hidden width (benchmarks/bench_gnn_tables.py)
 SEED = 0
 DEVICE = "cuda"
+BUILD_FIRST = ("pack", "bmm", "bspmm")   # the kernels of phases 2-4
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 INT8_TC_OPS_PER_S = 1979e12  # lowest-precision tensor-core rate in the table
 FP32_OPS_PER_S = 67e12       # float32 outside the tensor cores
@@ -323,8 +337,8 @@ TOKEN_BATCH = 4            # phase 15: the token store's max_batch
 TOKEN_MAX_LEN = 512        # phase 15: the token store's max_len
 TOKEN_CHUNK = 8            # phase 15: decode steps a launch
 TOKEN_TOL = 0.15           # phase 15: the reference's forward-vs-decode rule
-# phase 15 (c): each arch's depth at full width (the registry's otherwise)
-# (zamba2's shared attention block runs at every 6th layer, so 6 layers)
+# phases 15, 16 (b), 19: each arch's depth at full width (2 layers
+# otherwise; zamba2's shared attention block runs at every 6th layer)
 TOKEN_DEPTH = {"zamba2-1.2b": dict(n_layers=6),
                "seamless-m4t-medium": dict(enc_layers=2, dec_layers=2)}
 LM_ARCH = "smollm-135m"    # phase 16: the LM trained at full width
@@ -367,13 +381,15 @@ EP_MESHES = ((1, 2), (2, 2))   # phase 19 (a): (data, model) of each world
 EP_LOGIT_TOL = 1e-4        # phase 19 (a): logits, of max |logits|
 EP_LOSS_TOL = 1e-5         # phase 19 (a): the loss, relative
 EP_GRAD_TOL = 1e-4         # phase 19 (a): expert gradients, of max |g|
+MESH_LAYERS = 2            # phase 19 (b): depth cut, as 16b
 MESH_STEPS = 8             # phase 19 (b): the sharded Trainer's steps
 MESH_CKPT_EVERY = 4        # phase 19 (b): its checkpoint interval
 MESH_FAIL_AT = 4           # phase 19 (b): its injected failure
-MESH_LOSS_TOL = 1e-3       # phase 19 (b): steps 4-7 against 16a, relative
+MESH_LOSS_TOL = 1e-3       # phase 19 (b): steps 4-7 against one process
 MESH_TIMEOUT_S = 300       # phase 19: each world's limit
 # phase 20: each example twin's arguments (the sizes of the JAX examples'
-# docstrings; train_lm at full depth, failing once after a checkpoint)
+# docstrings; train_lm at its docstring's 6 layers, failing once after a
+# checkpoint)
 TWIN_RUNS = (
     ("quickstart", []),
     ("distributed_gnn_inference", []),
@@ -383,7 +399,7 @@ TWIN_RUNS = (
     ("serve_replicated", []),
     ("serve_llm", []),
     ("serve_llm", ["--quant"]),
-    ("train_lm", ["--layers", "30", "--steps", "60", "--fail-at", "30"]),
+    ("train_lm", ["--layers", "6", "--steps", "60", "--fail-at", "30"]),
 )
 STATS_LAYERS = 2           # phase 20: GCN layers of the launch_stats lines
 
@@ -392,6 +408,76 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# the ``walls:`` line: each phase's seconds, and inside it those of its
+# reference work (the checks' CPU forwards, twin sessions, stepwise
+# replays), its timing loops and its worlds' start-up and tear-down
+WALLS = {}
+_OPEN = {"phase": None, "part": None, "t0": 0.0}
+
+
+def begin(name) -> None:
+    """End the open phase of the ``walls:`` line and open ``name`` (None:
+    none)."""
+    now = time.perf_counter()
+    add_wall(_OPEN["phase"], "s", now - _OPEN["t0"])
+    _OPEN.update(phase=name, t0=now)
+
+
+def add_wall(name, key: str, s: float) -> None:
+    if name is not None:
+        row = WALLS.setdefault(name, {})
+        row[key] = row.get(key, 0.0) + s
+
+
+@contextlib.contextmanager
+def part(kind: str):
+    """Add the block's seconds to the open phase's ``<kind>_s`` (a part
+    inside another counts once, in the outer one)."""
+    if _OPEN["part"] is not None:
+        yield
+        return
+    t0 = time.perf_counter()
+    _OPEN["part"] = kind
+    try:
+        yield
+    finally:
+        _OPEN["part"] = None
+        add_wall(_OPEN["phase"], f"{kind}_s", time.perf_counter() - t0)
+
+
+def timing(fn):
+    """``fn`` counted as a timing loop of the open phase."""
+    @functools.wraps(fn)
+    def timed(*args, **kw):
+        with part("timing"):
+            return fn(*args, **kw)
+    return timed
+
+
+def stamped(fn, rank: int, *args):
+    """``fn(rank, *args)`` between wall-clock stamps (runs in the rank)."""
+    t0 = time.time()
+    out = fn(rank, *args)
+    return t0, time.time(), out
+
+
+def world(fn, n: int, *args, **kw) -> list:
+    """``run_ranks(fn, n, *args, **kw)``. The world's wall less its ranks'
+    work (first entry into ``fn`` to last exit) goes to the open phase's
+    ``startup_s``; the whole wall where the world fails."""
+    from repro_torch.launch.mesh import run_ranks
+    t0 = time.perf_counter()
+    try:
+        outs = run_ranks(functools.partial(stamped, fn), n, *args, **kw)
+    except BaseException:
+        add_wall(_OPEN["phase"], "startup_s", time.perf_counter() - t0)
+        raise
+    work = max(o[1] for o in outs) - min(o[0] for o in outs)
+    add_wall(_OPEN["phase"], "startup_s", time.perf_counter() - t0 - work)
+    return [o[2] for o in outs]
+
+
+@timing
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     """Median ms of ``fn`` over ``iters`` launches, each between CUDA events."""
     for _ in range(warmup):
@@ -409,6 +495,7 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+@timing
 def host_ms(torch, fn, iters: int = 5) -> float:
     """Median wall ms of ``fn`` ending in a synchronize, after one warm-up."""
     fn()
@@ -422,6 +509,7 @@ def host_ms(torch, fn, iters: int = 5) -> float:
     return statistics.median(times)
 
 
+@timing
 def device_ms(torch, fn, iters: int = 20, tries: int = 3) -> float:
     """Mean device ms a call of ``fn`` spends in kernels and memsets
     (torch.profiler), after one warm-up: unlike ``cuda_ms`` it leaves out
@@ -558,6 +646,8 @@ def agree(what, got, want) -> tuple:
 
 
 def run(torch) -> dict:
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.core import bitops, frdc
     from repro_torch.graphs.datasets import make_dataset
     from repro_torch.kernels import bmm_kernel, bspmm_kernel, build, ops
@@ -577,23 +667,34 @@ def run(torch) -> dict:
     def rand_words(rows, nbits):
         return bitops.pack_bits(card(rng.integers(0, 2, (rows, nbits))))
 
-    # -- 1. build ------------------------------------------------------------
-    t0 = time.perf_counter()
-    build.build_all()
-    log(f"build: {time.perf_counter() - t0:.2f} s for {len(build.SOURCES)} "
-        f"sources {build.SOURCES}")
+    # -- 1. build, with the data and phases 2-3 beside it ---------------------
+    # nvcc runs in processes of its own, on a thread here: first the
+    # sources of phases 2-4 (BUILD_FIRST), then the others; the host makes
+    # the datasets and their FRDC matrices meanwhile, and phases 2-3 run
+    # while the rest compiles (fused_layer.cu is the long pole, one core).
+    # Phase 4 times the kernels, so it waits for the whole build.
+    begin("1 build + data")
+    t0 = t_build = time.perf_counter()
+    rest = tuple(n for n in build.SOURCES if n not in BUILD_FIRST)
 
-    # -- data ---------------------------------------------------------------
-    t0 = time.perf_counter()
+    def build_s(names):
+        build.build_all(names)
+        return time.perf_counter() - t_build
+
+    pool = ThreadPoolExecutor(1)
+    built = [pool.submit(build_s, names) for names in (BUILD_FIRST, rest)]
+    pool.shutdown(wait=False)
     flickr = make_dataset("flickr", seed=SEED, scale=1.0)
     reddit = make_dataset("reddit", seed=SEED, scale=0.1)
     log(f"datasets: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t1 = time.perf_counter()
     adjs = {
-        "flickr": {k: flickr.adjacency(k, dev) for k in ("gcn", "binary", "mean")},
+        "flickr": {k: flickr.adjacency(k, dev)
+                   for k in ("gcn", "binary", "mean")},
         "reddit": {k: reddit.adjacency(k, dev) for k in ("gcn", "binary")},
     }
-    log(f"FRDC build: {time.perf_counter() - t0:.1f} s")
+    log(f"FRDC build: {time.perf_counter() - t1:.1f} s")
+    first_s = built[0].result()
     for name, d in (("flickr", flickr), ("reddit", reddit)):
         a = adjs[name]["binary"]
         log(f"{name}: nodes {d.n_nodes} edges {d.n_edges} feats "
@@ -601,6 +702,7 @@ def run(torch) -> dict:
             f"{a.n_groups} groups(gcn) {adjs[name]['gcn'].n_groups}")
 
     # -- 2. parity ----------------------------------------------------------
+    begin("2 parity")
     t0 = time.perf_counter()
     err = {k: 0.0 for k in REPLACES}
 
@@ -676,6 +778,7 @@ def run(torch) -> dict:
         + json.dumps({k: v for k, v in err.items()}))
 
     # -- 3. main path -------------------------------------------------------
+    begin("3 main path")
     t0 = time.perf_counter()
     xs = {"flickr": card(flickr.x), "reddit": card(reddit.x)}
     models = {
@@ -720,10 +823,11 @@ def run(torch) -> dict:
         forward_ms[name] = host_ms(
             torch, lambda: model(x, *mats, bn_stats=stats))
         # the same forward on the CPU: plain versions, the card's BN stats
-        cpu_stats = tuple((mu.cpu(), sd.cpu()) for mu, sd in stats)
-        want = model.to("cpu")(x.cpu(), *[m.to("cpu") for m in mats],
-                               bn_stats=cpu_stats)
-        model.to(dev)
+        with part("reference"):
+            cpu_stats = tuple((mu.cpu(), sd.cpu()) for mu, sd in stats)
+            want = model.to("cpu")(x.cpu(), *[m.to("cpu") for m in mats],
+                                   bn_stats=cpu_stats)
+            model.to(dev)
         got = logits.cpu()
         rows_close = float(torch.isclose(got, want, rtol=1e-3, atol=1e-3)
                            .all(dim=1).float().mean())
@@ -739,7 +843,13 @@ def run(torch) -> dict:
     log(f"main path launches: {json.dumps(launches)}; "
         f"{time.perf_counter() - t0:.1f} s")
 
+    begin("1 build (wait)")
+    log(f"build: {built[1].result():.2f} s for {len(build.SOURCES)} "
+        f"sources {build.SOURCES} ({first_s:.2f} s for {BUILD_FIRST}), "
+        f"with the data and phases 2-3 beside it")
+
     # -- 4. times at the main-path shapes ------------------------------------
+    begin("4 times")
     adj_b, adj_g = adjs["flickr"]["binary"], adjs["flickr"]["gcn"]
     x500 = card(rng.standard_normal((n_fl, f_fl)).astype(np.float32))
     wk = bitops.padded_words(f_fl)
@@ -866,29 +976,42 @@ def run(torch) -> dict:
         for w in (1, 2, 4) for s2 in (0, 1)}))
     log("forward ms: " + json.dumps(forward_ms))
     log(f"phases 1-4: {time.perf_counter() - t_start:.1f} s")
-    serve_records, single, params, stores = run_serve(torch, flickr)
+    begin("5-7 serve")
+    serve_records, single, params, stores = run_serve(torch, flickr,
+                                                      adjs["flickr"])
     records += serve_records
     with tempfile.TemporaryDirectory(prefix="sharded-") as art:
+        begin("8-10 sharded")
         sharded_records, sharded_store, phase8 = run_sharded(
             torch, flickr, single, params, art)
         records += sharded_records
+        begin("18 spmd")
         spmd_launches = run_spmd(torch, art, phase8)
     for rec in records:
         per_rank = [ls.get(rec["name"], 0) for ls in spmd_launches]
         rec["launches"] += sum(per_rank)
         rec["spmd_launches_per_rank"] = per_rank
     # the engine paths' launches join each kernel's count
+    begin("11-12 engines")
     engine_launches = run_engine(torch, flickr, stores, sharded_store, single)
+    begin("13 train")
     train_launches = run_train(torch, flickr, adjs["flickr"])
+    begin("14 replica")
     replica_launches = run_replica(torch, flickr, params)
     for rec in records:
         rec["launches"] += sum(ls.get(rec["name"], 0) for ls in (
             engine_launches, train_launches, replica_launches))
+    begin("15 token")
     run_token(torch)
-    lm_losses = run_lm_train(torch)
+    begin("16 lm train")
+    run_lm_train(torch)
+    begin("17 dry run")
     run_dryrun(torch)
-    run_lm_mesh(torch, lm_losses)
+    begin("19 lm mesh")
+    run_lm_mesh(torch)
+    begin("20 twins")
     twin_launches = run_examples(torch, stores)
+    begin(None)
     for rec in records:
         rec["launches"] += twin_launches.get(rec["name"], 0)
     return {"kernels": records}
@@ -1047,8 +1170,9 @@ def kernel_record(name, shape, launches, max_err, ms, plain_ms, lib_ms,
             "bound_by": b_by, "library_ms": lib_ms}
 
 
-def run_serve(torch, flickr) -> tuple:
-    """Phases 5-7: the serving slice on full Flickr. Returns the kernel
+def run_serve(torch, flickr, adjs) -> tuple:
+    """Phases 5-7: the serving slice on full Flickr (``adjs``: phase 1's
+    full-graph FRDC matrices by kind, on the card). Returns the kernel
     records of the 2D-grid and fused kernels, the single-host GCN "bin"
     session of way (a), the models' parameters and the GCN stores of the
     three ways."""
@@ -1132,8 +1256,8 @@ def run_serve(torch, flickr) -> tuple:
                  frdc.from_dense(small, device=dev)]
     edge_adjs.append(frdc.pad_frdc(edge_adjs[1], 64,
                                    n_groups=edge_adjs[1].n_groups + 7))
-    full_bin = flickr.adjacency("binary", dev)       # the 1,399-group row
-    full_gcn = flickr.adjacency("gcn", dev)
+    full_bin = adjs["binary"]                       # the 1,399-group row
+    full_gcn = adjs["gcn"]
     cases = 0
     bits_cases = [(bin_b, HIDDEN, blk) for blk in (GRID_BLOCK, (4, None),
                                                      (8, 64))]
@@ -1308,16 +1432,18 @@ def run_serve(torch, flickr) -> tuple:
         flat = seeds[:n_b].reshape(-1)
         agree(f"{name} vs the card's full-graph forward", served[name],
               sess.full_logits()[flat])
-        twin = CompiledGraphSession(
-            sess.graph, sess.model, sess.plan,
-            type(sess.qparams)(*(cpu(w) for w in sess.qparams)),
-            khop=sess.khop, max_batch=sess.max_batch,
-            adj_full={k: m.to("cpu") for k, m in sess._adj_full.items()},
-            use_pallas=True, device="cpu")
-        twin.bn = cpu(sess.bn)                # the card's frozen BN
-        twin.feature_version = sess.feature_version
-        agree(f"{name} vs the CPU", served[name], np.concatenate(
-            [twin.serve_subgraph(seeds[i]) for i in range(n_b)]))
+        with part("reference"):
+            twin = CompiledGraphSession(
+                sess.graph, sess.model, sess.plan,
+                type(sess.qparams)(*(cpu(w) for w in sess.qparams)),
+                khop=sess.khop, max_batch=sess.max_batch,
+                adj_full={k: m.to("cpu") for k, m in sess._adj_full.items()},
+                use_pallas=True, device="cpu")
+            twin.bn = cpu(sess.bn)                # the card's frozen BN
+            twin.feature_version = sess.feature_version
+            on_cpu = np.concatenate([twin.serve_subgraph(seeds[i])
+                                     for i in range(n_b)])
+        agree(f"{name} vs the CPU", served[name], on_cpu)
     agree("b vs a", served["b"], served["a"])
     agree("c vs a", served["c"], served["a"])
 
@@ -2109,12 +2235,11 @@ def run_spmd(torch, art, phase8) -> list:
     schedule's, programs one a step. Returns each rank's kernel
     launches."""
     import numpy as np
-    from repro_torch.launch.mesh import run_ranks
 
     t_start = time.perf_counter()
     device = f"{DEVICE}:0"
-    ranks = run_ranks(spmd_rank, SHARDS, art, device, backend="gloo",
-                      device=device, timeout_s=SPMD_TIMEOUT_S)
+    ranks = world(spmd_rank, SHARDS, art, device, backend="gloo",
+                  device=device, timeout_s=SPMD_TIMEOUT_S)
     wall_s = time.perf_counter() - t_start
     r0 = ranks[0]
     for name, (want, want_bn) in phase8.items():
@@ -2536,11 +2661,11 @@ def run_train(torch, flickr, adjs) -> dict:
         cpu_stats = tuple((mu.cpu(), sd.cpu()) for mu, sd in stats)
         # the fp aggregation in the card's order: other orders give BN'd
         # values near 0 other signs, and trained weights differ each run
-        with bspmm_core.override_backends(fp=walk_fp):
+        with part("reference"), bspmm_core.override_backends(fp=walk_fp):
             want = model.to("cpu")(x.cpu(),
                                    *[adjs[k].to("cpu") for k in kinds],
                                    bn_stats=cpu_stats)
-        model.to(dev)
+            model.to(dev)
         agree(f"phase 13 {name} vs the CPU", logits.cpu().numpy(),
               want.numpy())
         acc[name] = gnn.accuracy(logits, y, test_mask)
@@ -2662,7 +2787,6 @@ def run_replica(torch, flickr, params) -> dict:
     with phase 6's seeded weights, BN calibrated by each store as in phase
     6. Returns the phase's kernel launches by kernel name."""
     import copy
-    import dataclasses
     import tempfile
 
     import numpy as np
@@ -2955,6 +3079,16 @@ def token_config(name: str):
     return get_config(name).resolve_for_mesh(tp=1)
 
 
+def depth_cut(name: str) -> tuple:
+    """(``token_config(name)`` cut in depth as TOKEN_DEPTH says, 2 layers
+    where it names no cut; the cut as {field: "full -> cut"}). The width
+    stays the registry's."""
+    full = token_config(name)
+    cut = TOKEN_DEPTH.get(name, dict(n_layers=2))
+    return (dataclasses.replace(full, **cut),
+            {k: f"{getattr(full, k)} -> {v}" for k, v in cut.items()})
+
+
 def stepwise(torch, cfg, params, prompts, max_news, batch, cache_len):
     """Phase 15's ground truth for one served batch: a Python loop of
     ``decode_step`` at the session's ``batch`` and ``cache_len``, each slot
@@ -2984,6 +3118,7 @@ def stepwise(torch, cfg, params, prompts, max_news, batch, cache_len):
             for i, (n, m) in enumerate(zip(lens, max_news))]
 
 
+@timing
 def chunk_timing(torch, session, prompts) -> dict:
     """ms a decode step of one chunk launch of ``session`` at its batch
     and water: on the host clock (launch to synchronize) and on CUDA
@@ -3046,8 +3181,6 @@ def chunk_timing(torch, session, prompts) -> dict:
 def run_token(torch) -> None:
     """Phase 15: the token tier on the card (see the module docstring).
     Launches none of the GNN kernels; a failed check raises."""
-    import dataclasses
-
     import numpy as np
     from repro_torch.configs import ARCHS
     from repro_torch.models import transformer
@@ -3070,7 +3203,7 @@ def run_token(torch) -> None:
     # -- 15a. stablelm-1.6b, served fp and packed ---------------------------
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    cfg = token_config("stablelm-1.6b")
+    cfg, cut = depth_cut("stablelm-1.6b")
     params = transformer.init_params(cfg, gen, DEVICE)
     store = TokenStore(max_batch=TOKEN_BATCH, max_len=TOKEN_MAX_LEN,
                        chunk=TOKEN_CHUNK, warm_len=128, warm_new=16,
@@ -3082,8 +3215,9 @@ def run_token(torch) -> None:
     news = rng.integers(16, 65, TOKEN_REQUESTS)
     prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
                for n in lens]
-    log(f"phase 15a stablelm-1.6b: {cfg.n_layers} layers, d {cfg.d_model}, "
-        f"vocab {cfg.vocab}, params {time.perf_counter() - t0:.1f} s")
+    log(f"phase 15a stablelm-1.6b: {cfg.n_layers} layers (cut "
+        f"{json.dumps(cut)}), d {cfg.d_model}, vocab {cfg.vocab}, params "
+        f"{time.perf_counter() - t0:.1f} s")
     for name in ("fp", "bin"):
         t1 = time.perf_counter()
         eng = TokenServeEngine(store, pipeline_depth=1)
@@ -3105,10 +3239,11 @@ def run_token(torch) -> None:
         sess = store.session(name)
         cache_len = sess.core._n_water
         for batch in eng.batch_log:
-            want = stepwise(torch, cfg, sess.core.qparams,
-                            [q.prompt for q in batch],
-                            [q.max_new for q in batch], TOKEN_BATCH,
-                            cache_len)
+            with part("reference"):
+                want = stepwise(torch, cfg, sess.core.qparams,
+                                [q.prompt for q in batch],
+                                [q.max_new for q in batch], TOKEN_BATCH,
+                                cache_len)
             for q, w in zip(batch, want):
                 if not np.array_equal(q.tokens, w):
                     raise AssertionError(
@@ -3151,9 +3286,10 @@ def run_token(torch) -> None:
     card, _ = transformer.decode_chunk(
         params, cfg, transformer.init_cache(cfg, 1, 64, device=DEVICE),
         toks.to(DEVICE), 0)
-    cpu, _ = transformer.decode_chunk(
-        to_cpu(params), cfg, transformer.init_cache(cfg, 1, 64, device="cpu"),
-        toks, 0)
+    with part("reference"):
+        cpu, _ = transformer.decode_chunk(
+            to_cpu(params), cfg,
+            transformer.init_cache(cfg, 1, 64, device="cpu"), toks, 0)
     card, cpu = card.float().cpu().numpy(), cpu.float().numpy()
     if not np.allclose(card, cpu, rtol=TOKEN_TOL, atol=TOKEN_TOL):
         raise AssertionError(f"phase 15a logits card vs CPU: max |d| "
@@ -3169,7 +3305,7 @@ def run_token(torch) -> None:
     # -- 15b. rwkv6-3b through TokenSession.run -----------------------------
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    cfg = token_config("rwkv6-3b")
+    cfg, cut = depth_cut("rwkv6-3b")
     params = transformer.init_params(cfg, gen, DEVICE)
     r_prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
                  for n in rng.integers(8, 33, TOKEN_BATCH)]
@@ -3182,8 +3318,9 @@ def run_token(torch) -> None:
         t2 = time.perf_counter()
         outs = sess.run(r_prompts, r_news)
         wall = time.perf_counter() - t2
-        want = stepwise(torch, cfg, sess.core.qparams, r_prompts, r_news,
-                        TOKEN_BATCH, sess.core._n_water)
+        with part("reference"):
+            want = stepwise(torch, cfg, sess.core.qparams, r_prompts,
+                            r_news, TOKEN_BATCH, sess.core._n_water)
         if not all(np.array_equal(o, w) for o, w in zip(outs, want)):
             raise AssertionError(f"phase 15b rwkv6-3b quantize={quant}: "
                                  f"streams differ from the stepwise loop")
@@ -3208,7 +3345,7 @@ def run_token(torch) -> None:
         n_tok = sum(len(o) for o in outs)
         timing = chunk_timing(torch, sess, r_prompts)
         log(f"phase 15b rwkv6-3b quantize={quant}: " + json.dumps(dict(
-            layers=cfg.n_layers, d_model=cfg.d_model,
+            layers=cfg.n_layers, cut=cut, d_model=cfg.d_model,
             cache_len=sess.core._n_water, generated_tokens=n_tok,
             run_s=wall, tokens_per_s=n_tok / wall,
             param_bytes=quantized_param_bytes(sess.core.qparams),
@@ -3227,10 +3364,7 @@ def run_token(torch) -> None:
     cuts, rows = {}, {}
     for name in sorted(ARCHS):
         t1 = time.perf_counter()
-        full = token_config(name)
-        cut = TOKEN_DEPTH.get(name, dict(n_layers=2))
-        cfg = dataclasses.replace(full, **cut)
-        cuts[name] = {k: f"{getattr(full, k)} -> {v}" for k, v in cut.items()}
+        cfg, cuts[name] = depth_cut(name)
         torch.cuda.reset_peak_memory_stats()
         params = transformer.init_params(cfg, gen, DEVICE)
         b, t = 2, 8
@@ -3287,21 +3421,42 @@ def run_token(torch) -> None:
     log(f"phase 15: {time.perf_counter() - t_start:.1f} s")
 
 
-def run_lm_train(torch) -> list:
+def lm_recipe(torch, cfg, device: str, opt_cls=None) -> tuple:
+    """``launch/train.py``'s recipe for ``cfg`` on ``device``, as phase 16
+    (a), 19 (b)'s ranks and 19 (b)'s reference run it: the optimizer
+    (``opt_cls``, AdamW by default; cosine peak LM_LR over LM_STEPS,
+    warmup 10, clip 1.0)'s train step, the seeded initial state and a
+    maker of the synthetic loader."""
+    from repro_torch.data.pipeline import PrefetchLoader, SyntheticLM
+    from repro_torch.models import transformer
+    from repro_torch.optim.optimizer import AdamW, cosine_schedule
+    from repro_torch.train.train_step import make_train_step
+
+    opt = (opt_cls or AdamW)(lr=cosine_schedule(LM_LR, 10, LM_STEPS),
+                             clip_norm=1.0)
+    step = make_train_step(cfg, opt, unroll=False)
+
+    def init_state():
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        params = transformer.init_params(cfg, gen, device)
+        return params, opt.init(params), ()
+
+    def make_loader():
+        return PrefetchLoader(SyntheticLM(cfg.vocab, LM_SEQ), LM_BATCH)
+    return step, init_state, make_loader
+
+
+def run_lm_train(torch) -> None:
     """Phase 16: LM training on the card (see the module docstring).
-    Launches none of the GNN kernels; a failed check raises. Returns 16a's
-    losses before its injected failure (phase 19 (b) holds to them)."""
-    import dataclasses
+    Launches none of the GNN kernels; a failed check raises."""
     import shutil
     import tempfile
 
     import numpy as np
-    from repro_torch.checkpoint.checkpointer import Checkpointer
-    from repro_torch.data.pipeline import PrefetchLoader, SyntheticLM
+    from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models import transformer
-    from repro_torch.optim.optimizer import AdamW, cosine_schedule, tree_leaves
-    from repro_torch.train.train_step import (make_loss_fn, make_train_step,
-                                              value_and_grad)
+    from repro_torch.optim.optimizer import AdamW, tree_leaves
+    from repro_torch.train.train_step import make_loss_fn, value_and_grad
     from repro_torch.train.trainer import (FailureInjector, Trainer,
                                            TrainerConfig, run_with_restarts)
 
@@ -3337,8 +3492,8 @@ def run_lm_train(torch) -> list:
             rec["update_ms"].append((time.perf_counter() - t0) * 1e3)
             return out
 
-    opt = TimedAdamW(lr=cosine_schedule(LM_LR, 10, LM_STEPS), clip_norm=1.0)
-    step = make_train_step(cfg, opt, unroll=False)
+    step, init_state, make_loader = lm_recipe(torch, cfg, DEVICE,
+                                              TimedAdamW)
     saved = {}
 
     def timed_step(params, opt_state, batch):
@@ -3391,16 +3546,11 @@ def run_lm_train(torch) -> list:
         rec["event_ms"].append(float("nan"))
         return params, opt_state, metrics
 
-    def init_state():
-        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-        params = transformer.init_params(cfg, gen, DEVICE)
-        return params, opt.init(params), ()
-
     ckpt_dir = tempfile.mkdtemp(prefix="lm_ckpt_")
     loaders, restored = [], {}
 
     def make_trainer():
-        loader = PrefetchLoader(SyntheticLM(cfg.vocab, LM_SEQ), LM_BATCH)
+        loader = make_loader()
         loaders.append(loader)
         tr = Trainer(cfg, timed_step, init_state, loader, ckpt_dir,
                      TrainerConfig(total_steps=LM_STEPS,
@@ -3488,10 +3638,7 @@ def run_lm_train(torch) -> list:
     cuts, rows = {}, {}
     for name in GRAD_ARCHS:
         t1 = time.perf_counter()
-        full = token_config(name)
-        cut = TOKEN_DEPTH.get(name, dict(n_layers=2))
-        gcfg = dataclasses.replace(full, **cut)
-        cuts[name] = {k: f"{getattr(full, k)} -> {v}" for k, v in cut.items()}
+        gcfg, cuts[name] = depth_cut(name)
         torch.cuda.reset_peak_memory_stats()
         params = transformer.init_params(gcfg, gen, DEVICE)
         tokens = torch.randint(0, gcfg.vocab, (GRAD_B, GRAD_T), generator=gen,
@@ -3557,7 +3704,6 @@ def run_lm_train(torch) -> list:
     del params, res, grads
     torch.cuda.empty_cache()
     log(f"phase 16: {time.perf_counter() - t_start:.1f} s ({card})")
-    return losses[:LM_FAIL_AT]
 
 
 def run_dryrun(torch) -> None:
@@ -3713,8 +3859,6 @@ def moe_placed_step(torch) -> dict:
     Returns both losses (the caller holds them equal), each step's host
     ms and the bytes still allocated after both."""
     import contextlib
-    import dataclasses
-
     import numpy as np
     from torch.distributed.tensor.experimental import implicit_replication
     from repro_torch.checkpoint.checkpointer import _place
@@ -3783,13 +3927,25 @@ def gather_probe_rank(rank: int, device: str) -> bool:
 
 
 def mesh_config(name: str, device: str):
-    """Phase 19's configuration of ``name``: 15's on the card, the reduced
-    one elsewhere (a CPU rehearsal: the ranks are fresh processes, which
-    no patch of this module reaches)."""
+    """Phase 19's configuration of ``name``: the registry's on the card,
+    the reduced one elsewhere (a CPU rehearsal: the ranks are fresh
+    processes, which no patch of this module reaches)."""
     if device.startswith("cuda"):
         return token_config(name)
     from repro_torch.configs import get_config, reduced_config
     return reduced_config(get_config(name)).resolve_for_mesh(tp=1)
+
+
+def ep_config(device: str):
+    """Phase 19 (a)'s model: EP_ARCH at full width, EP_LAYERS deep, fp32."""
+    return dataclasses.replace(mesh_config(EP_ARCH, device),
+                               n_layers=EP_LAYERS, dtype="float32")
+
+
+def mesh_train_config(device: str):
+    """Phase 19 (b)'s model: LM_ARCH at full width, MESH_LAYERS deep."""
+    return dataclasses.replace(mesh_config(LM_ARCH, device),
+                               n_layers=MESH_LAYERS)
 
 
 def sync(torch, device: str) -> None:
@@ -3843,8 +3999,6 @@ def ep_rank(rank: int, data: int, model: int, device: str) -> dict:
     """Phase 19 (a), one rank: the plain forward and gradient step on the
     card, then the same on the (data, model) mesh with
     ``moe_groups=-1``; returns the checks and timings of this rank."""
-    import dataclasses
-
     import torch
     from torch.distributed.tensor.experimental import implicit_replication
     from repro_torch.checkpoint.checkpointer import _place
@@ -3856,9 +4010,10 @@ def ep_rank(rank: int, data: int, model: int, device: str) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if device.startswith("cuda"):
+        torch.cuda.reset_peak_memory_stats()
     t_start = time.perf_counter()
-    cfg = dataclasses.replace(mesh_config(EP_ARCH, device),
-                              n_layers=EP_LAYERS, dtype="float32")
+    cfg = ep_config(device)
     plain_cfg = dataclasses.replace(cfg, moe_groups=data if data > 1 else 0)
     mesh_cfg = dataclasses.replace(cfg, moe_groups=-1)
     gen = torch.Generator(device=device).manual_seed(SEED + 19)
@@ -3926,32 +4081,30 @@ def ep_rank(rank: int, data: int, model: int, device: str) -> dict:
 
 def mesh_train_rank(rank: int, ckpt_dir: str, fsdp: bool,
                     device: str) -> dict:
-    """Phase 19 (b), one rank: 16a's recipe through ``run_with_restarts``
-    for MESH_STEPS steps, the restart restored under the placements of
-    ``param_shardings(fsdp=fsdp)`` over (2, 1); the restarted loader skips
-    the batches the first run took, so step s sees 16a's batch s."""
+    """Phase 19 (b), one rank: 16a's recipe at MESH_LAYERS layers through
+    ``run_with_restarts`` for MESH_STEPS steps, the restart restored under
+    the placements of ``param_shardings(fsdp=fsdp)`` over (2, 1); the
+    restarted loader skips the batches the first run took, so step s sees
+    the one-process run's batch s."""
     import contextlib
     import hashlib
 
     import numpy as np
     import torch
     from repro_torch.checkpoint import checkpointer
-    from repro_torch.data.pipeline import PrefetchLoader, SyntheticLM
     from repro_torch.distributed import sharding
     from repro_torch.distributed.hlo_analysis import CollectiveRecorder
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import transformer
-    from repro_torch.optim.optimizer import (AdamW, cosine_schedule,
-                                             tree_leaves)
-    from repro_torch.train.train_step import make_train_step
+    from repro_torch.optim.optimizer import tree_leaves
     from repro_torch.train.trainer import (FailureInjector, Trainer,
                                            TrainerConfig, run_with_restarts)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = mesh_config(LM_ARCH, device)
-    opt = AdamW(lr=cosine_schedule(LM_LR, 10, LM_STEPS), clip_norm=1.0)
-    step = make_train_step(cfg, opt, unroll=False)
+    if device.startswith("cuda"):
+        torch.cuda.reset_peak_memory_stats()
+    cfg = mesh_train_config(device)
+    step, init_state, make_loader = lm_recipe(torch, cfg, device)
     rec = dict(losses=[], host_ms=[], kept=[], meshed=[], coll=None,
                last=None, writes=[])
     real_savez = checkpointer.np.savez
@@ -3960,11 +4113,6 @@ def mesh_train_rank(rank: int, ckpt_dir: str, fsdp: bool,
         rec["writes"].append(Path(path).parent.name)
         return real_savez(path, **arrays)
     checkpointer.np.savez = savez
-
-    def init_state():
-        gen = torch.Generator(device=device).manual_seed(SEED)
-        params = transformer.init_params(cfg, gen, device)
-        return params, opt.init(params), ()
 
     def timed(params, opt_state, batch):
         n = len(rec["losses"])
@@ -3994,7 +4142,7 @@ def mesh_train_rank(rank: int, ckpt_dir: str, fsdp: bool,
         failer = FailureInjector(MESH_FAIL_AT)
 
         def make():
-            loader = PrefetchLoader(SyntheticLM(cfg.vocab, LM_SEQ), LM_BATCH)
+            loader = make_loader()
             loaders.append(loader)
             if len(loaders) > 1:       # the batches of steps 0-3 again
                 for _ in range(MESH_FAIL_AT):
@@ -4033,17 +4181,57 @@ def mesh_train_rank(rank: int, ckpt_dir: str, fsdp: bool,
                 s=time.perf_counter() - t_start)
 
 
-def run_lm_mesh(torch, lm_losses) -> None:
+def world2_rank(rank: int, ckpt_dir: str, fsdp: bool, device: str) -> dict:
+    """Phase 19's world of two ranks: (a) on the first mesh of EP_MESHES,
+    then (b); each part's checks are the parent's, on its own results."""
+    data, model = EP_MESHES[0]
+    return dict(ep=ep_rank(rank, data, model, device),
+                train=mesh_train_rank(rank, ckpt_dir, fsdp, device))
+
+
+def mesh_reference_losses(torch, device: str) -> list:
+    """Phase 19 (b)'s reference: the MESH_STEPS losses of its recipe in
+    this process, plain tensors, no failure (``Trainer`` as 16a runs it)."""
+    import shutil
+
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = mesh_train_config(device)
+    step, init_state, make_loader = lm_recipe(torch, cfg, device)
+    losses = []
+
+    def recorded(params, opt_state, batch):
+        new = step(params, opt_state, batch)
+        losses.append(float(new[2]["loss"]))
+        return new
+
+    ckpt_dir = tempfile.mkdtemp(prefix="mesh_ref_")
+    loader = make_loader()
+    try:
+        Trainer(cfg, recorded, init_state, loader, ckpt_dir,
+                TrainerConfig(total_steps=MESH_STEPS,
+                              ckpt_every=MESH_CKPT_EVERY,
+                              log_every=MESH_CKPT_EVERY),
+                device=device).run()
+    finally:
+        loader.close()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if device.startswith("cuda"):
+        torch.cuda.empty_cache()
+    return losses
+
+
+def run_lm_mesh(torch) -> None:
     """Phase 19: the LM mesh paths on the one card (see the module
     docstring). Launches none of the GNN kernels; a failed check
     raises."""
     import hashlib
     import shutil
+    from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
     from repro_torch.checkpoint.checkpointer import Checkpointer, _flatten
     from repro_torch.launch.dryrun import run_cell
-    from repro_torch.launch.mesh import run_ranks
     from repro_torch.models import transformer
     from repro_torch.optim.optimizer import AdamW
 
@@ -4053,26 +4241,84 @@ def run_lm_mesh(torch, lm_losses) -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     device = f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE
-    # the probe: does DTensor's all-gather run on device tensors over gloo?
-    try:
-        gather_ok = all(run_ranks(gather_probe_rank, 2, device,
-                                  backend="gloo", device=device,
-                                  timeout_s=MESH_TIMEOUT_S))
-        why = "DTensor's all-gather of device tensors runs over gloo"
-    except RuntimeError as e:
-        gather_ok = False
-        why = ("DTensor's Shard -> Replicate (an all-gather) of device "
-               "tensors over gloo took the probe world down ("
-               + str(e).splitlines()[0] + ")")
+
+    def probe():
+        """Does DTensor's all-gather run on device tensors over gloo?"""
+        try:
+            return all(world(gather_probe_rank, 2, device, backend="gloo",
+                             device=device, timeout_s=MESH_TIMEOUT_S)), \
+                "DTensor's all-gather of device tensors runs over gloo"
+        except RuntimeError as e:
+            return False, ("DTensor's Shard -> Replicate (an all-gather) of "
+                           "device tensors over gloo took the probe world "
+                           "down (" + str(e).splitlines()[0] + ")")
+
+    # -- 19c. the A3 dry-run cell, traced here while the probe's world runs
+    def cell(groups):
+        t0 = time.perf_counter()
+        res = run_cell(EP_ARCH, "train_4k", "single", probe=False,
+                       cfg_overrides={"moe_groups": groups})
+        return dict(
+            per_device_hbm_bytes=res["memory"]["per_device_hbm_bytes"],
+            collective_bytes_per_device=res["collective_bytes_per_device"],
+            collectives_by_op=res["collectives_scanned_program"],
+            s=time.perf_counter() - t0)
+
+    def hooks_left():
+        """The cells' checkpointed blocks must leave no saved-tensor hooks
+        behind (torch before 2.13 does where a block raises, unless
+        models.transformer's _remat closes them): a later backward would
+        recompute the block."""
+        top = torch._C._autograd._top_saved_tensors_default_hooks
+        try:
+            return top(False) is not None
+        except TypeError:
+            return top() is not None
+
+    with ThreadPoolExecutor(1) as pool:
+        probed = pool.submit(probe)
+        cells = {g: cell(g) for g in (-1, 0)}  # a failure fails the run
+        if hooks_left():
+            raise AssertionError("phase 19c: a cell left saved-tensor "
+                                 "hooks installed")
+        gather_ok, why = probed.result()
     log("phase 19 probe: " + json.dumps(dict(all_gather_ok=gather_ok,
                                               why=why)))
+    log(f"phase 19c {EP_ARCH} train_4k single, moe_groups -1 (A3) and 0, "
+        f"full depth, no probes: " + json.dumps(cells))
+
+    # one world of two ranks runs (a) on EP_MESHES[0] and then (b), one of
+    # four (a) on EP_MESHES[1] (four ranks of 18 GiB: this process holds
+    # nothing more on the card than before the phase); then (b)'s
+    # reference in this process
+    kind = "fsdp" if gather_ok else "data-parallel"
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    ckpt_dir = tempfile.mkdtemp(prefix="mesh_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        two = world(world2_rank, 2, ckpt_dir, gather_ok, device,
+                    backend="gloo", device=device, timeout_s=MESH_TIMEOUT_S)
+        world2_s = time.perf_counter() - t0
+        data, model = EP_MESHES[1]
+        four = world(ep_rank, data * model, data, model, device,
+                     backend="gloo", device=device, timeout_s=MESH_TIMEOUT_S)
+        cfg = mesh_train_config(device)
+        like_p = transformer.init_params(cfg, torch.Generator(), "meta")
+        like = (like_p, AdamW().init(like_p), ())
+        restored = _flatten(Checkpointer(ckpt_dir).restore(MESH_STEPS,
+                                                           like))[1]
+        digests = [hashlib.sha256(np.ascontiguousarray(v).tobytes())
+                   .hexdigest() for v in restored]
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    with part("reference"):
+        want = mesh_reference_losses(torch, device)
 
     # -- 19a. expert-parallel MoE ------------------------------------------
     ep_rows = {}
-    for data, model in EP_MESHES:
-        ranks = run_ranks(ep_rank, data * model, data, model, device,
-                          backend="gloo", device=device,
-                          timeout_s=MESH_TIMEOUT_S)
+    for (data, model), ranks in zip(EP_MESHES,
+                                    ([r["ep"] for r in two], four)):
         key = f"({data}, {model})"
         for r in ranks:
             where = f"phase 19a {key} rank {r['rank']}"
@@ -4109,31 +4355,16 @@ def run_lm_mesh(torch, lm_losses) -> None:
         f"(not a deployment figure; {card}): " + json.dumps(ep_rows))
 
     # -- 19b. Trainer(shardings=) ------------------------------------------
-    t0 = time.perf_counter()
-    kind = "fsdp" if gather_ok else "data-parallel"
-    ckpt_dir = tempfile.mkdtemp(prefix="mesh_ckpt_")
-    try:
-        ranks = run_ranks(mesh_train_rank, 2, ckpt_dir, gather_ok, device,
-                          backend="gloo", device=device,
-                          timeout_s=MESH_TIMEOUT_S)
-        cfg = mesh_config(LM_ARCH, device)
-        like_p = transformer.init_params(cfg, torch.Generator(), "meta")
-        like = (like_p, AdamW().init(like_p), ())
-        restored = _flatten(Checkpointer(ckpt_dir).restore(MESH_STEPS,
-                                                           like))[1]
-        digests = [hashlib.sha256(np.ascontiguousarray(v).tobytes())
-                   .hexdigest() for v in restored]
-    finally:
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ranks = [r["train"] for r in two]
     r0 = ranks[0]
     losses = r0["losses"]
-    want = lm_losses[:MESH_STEPS]
     rel = [abs(a - b) / abs(b) for a, b in zip(losses[MESH_FAIL_AT:],
                                                 want[MESH_FAIL_AT:])]
     steady = [ms for ms in r0["host_ms"][MESH_FAIL_AT + 1:]]
-    log(f"phase 19b Trainer(shardings=), {LM_ARCH} full, 2 gloo ranks on "
-        f"one card (not a deployment figure; {card}): " + json.dumps(dict(
-            placements=kind, why=why, losses=losses, phase_16a=want,
+    log(f"phase 19b Trainer(shardings=), {LM_ARCH} at full width, "
+        f"{cfg.n_layers} layers, 2 gloo ranks on one card (not a deployment "
+        f"figure; {card}): " + json.dumps(dict(
+            placements=kind, why=why, losses=losses, one_process=want,
             steps_0_3_bit_equal=losses[:MESH_FAIL_AT] == want[:MESH_FAIL_AT],
             steps_4_7_max_rel=max(rel), tol=MESH_LOSS_TOL,
             wq_placements=r0["wq_placements"],
@@ -4143,7 +4374,7 @@ def run_lm_mesh(torch, lm_losses) -> None:
                 collectives_a_step=r["coll_count"], peak_gib=r["peak_gib"],
                 writes=r["writes"], s=r["s"]) for r in ranks],
             sharded_step_ms_rank0=statistics.median(steady),
-            world_s=time.perf_counter() - t0)))
+            world_s=world2_s)))
     if not (r0["restarts"] == 1 and r0["steps"] == MESH_STEPS - MESH_FAIL_AT
             and len(losses) == MESH_STEPS):
         raise AssertionError(f"phase 19b: {r0['restarts']} restarts, "
@@ -4151,9 +4382,11 @@ def run_lm_mesh(torch, lm_losses) -> None:
                              f"losses")
     if losses[:MESH_FAIL_AT] != want[:MESH_FAIL_AT]:
         raise AssertionError(f"phase 19b: steps 0-3 {losses[:MESH_FAIL_AT]}"
-                             f" differ from 16a's {want[:MESH_FAIL_AT]}")
+                             f" differ from one process's "
+                             f"{want[:MESH_FAIL_AT]}")
     if max(rel) > MESH_LOSS_TOL:
-        raise AssertionError(f"phase 19b: steps 4-7 off 16a's by {rel}")
+        raise AssertionError(f"phase 19b: steps 4-7 off one process's by "
+                             f"{rel}")
     for r in ranks:
         if r["losses"] != losses or not all(r["kept"]):
             raise AssertionError(f"phase 19b rank {r['rank']}: losses "
@@ -4172,32 +4405,6 @@ def run_lm_mesh(torch, lm_losses) -> None:
         raise AssertionError(f"phase 19b: wq placements "
                              f"{r0['wq_placements']}")
 
-    # -- 19c. the A3 dry-run cell -------------------------------------------
-    def cell(groups):
-        t0 = time.perf_counter()
-        res = run_cell(EP_ARCH, "train_4k", "single", probe=False,
-                       cfg_overrides={"moe_groups": groups})
-        return dict(
-            per_device_hbm_bytes=res["memory"]["per_device_hbm_bytes"],
-            collective_bytes_per_device=res["collective_bytes_per_device"],
-            collectives_by_op=res["collectives_scanned_program"],
-            s=time.perf_counter() - t0)
-
-    cells = {g: cell(g) for g in (-1, 0)}  # a failure fails the run
-    # the cells' checkpointed blocks must leave no saved-tensor hooks
-    # behind (torch before 2.13 does where a block raises, unless
-    # models.transformer's _remat closes them): a later backward would
-    # recompute the block
-    top = torch._C._autograd._top_saved_tensors_default_hooks
-    try:
-        left = top(False)
-    except TypeError:
-        left = top()
-    if left is not None:
-        raise AssertionError("phase 19c: a cell left saved-tensor hooks "
-                             "installed")
-    log(f"phase 19c {EP_ARCH} train_4k single, moe_groups -1 (A3) and 0, "
-        f"full depth, no probes: " + json.dumps(cells))
     log(f"phase 19: {time.perf_counter() - t_start:.1f} s ({card})")
 
 
@@ -4327,7 +4534,20 @@ def run_examples(torch, stores) -> dict:
     return launches
 
 
+def walls_line(total_s: float, card: str) -> str:
+    """The ``walls:`` record: each phase's seconds, its reference work,
+    timing loops and worlds' start-up, and the rest (the card's path and
+    its set-up); the total and the card. A record, not a gate."""
+    phases = {}
+    for name, row in WALLS.items():
+        phases[name] = dict(row, rest_s=row.get("s", 0.0) - sum(
+            v for k, v in row.items() if k != "s"))
+    return "walls: " + json.dumps(dict(phases=phases, total_s=total_s,
+                                       card=card))
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -4346,8 +4566,10 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
     print(json.dumps(result), flush=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card, flush=True)
+    print(walls_line(time.perf_counter() - t_start, card), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
