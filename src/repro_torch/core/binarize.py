@@ -17,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..kernels import ops
+from ..kernels import counting, ops
 from . import bitops
 
 
@@ -57,15 +57,16 @@ def col_l1_scale(x: torch.Tensor) -> torch.Tensor:
 
 def binarize_matrix(x: torch.Tensor, scale: str = "row") -> BinTensor:
     """Factorize ``x ~= scale * sign(x)`` and pack the signs."""
-    if scale == "row":
-        s = row_l1_scale(x)
-    elif scale == "col":
-        s = col_l1_scale(x)
-    elif scale == "none":
-        s = x.new_ones((*x.shape[:-2], 1, 1))
-    else:
-        raise ValueError(scale)
-    return BinTensor(packed=bin_op(x, axis=-1), scale=s, n=x.shape[-1])
+    with counting.span("bin"):
+        if scale == "row":
+            s = row_l1_scale(x)
+        elif scale == "col":
+            s = col_l1_scale(x)
+        elif scale == "none":
+            s = x.new_ones((*x.shape[:-2], 1, 1))
+        else:
+            raise ValueError(scale)
+        return BinTensor(packed=bin_op(x, axis=-1), scale=s, n=x.shape[-1])
 
 
 def dequantize(t: BinTensor, dtype=torch.float32) -> torch.Tensor:

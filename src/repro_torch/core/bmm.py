@@ -20,11 +20,12 @@ from typing import Union
 
 import torch
 
-from ..kernels import ops
+from ..kernels import counting, ops
 from . import bitops
 from .binarize import BinTensor, bin_op, binarize_matrix, dequantize
 
 BMM_VARIANTS = ("FBF", "FBB", "BBF", "BBB", "BFF", "BFB", "FFB")
+_SPAN = {v: "bmm." + v for v in BMM_VARIANTS}   # ``counting.span`` names
 
 
 def quantize_weight(w: torch.Tensor) -> BinTensor:
@@ -56,32 +57,33 @@ def bmm(x: Union[torch.Tensor, BinTensor], wt: Union[torch.Tensor, BinTensor],
     """
     if variant not in BMM_VARIANTS:
         raise ValueError(f"unknown BMM variant {variant!r}")
-    xa, wp, op = variant
+    with counting.span(_SPAN[variant]):
+        xa, wp, op = variant
 
-    if xa == "F":
-        if isinstance(x, BinTensor):
-            raise TypeError(f"BMM.{variant} takes an fp activation")
-        w_eff = dequantize(wt).T if wp == "B" else wt
-        full = x @ w_eff
-    else:
-        if not isinstance(x, BinTensor):
-            raise TypeError(f"BMM.{variant} takes a BinTensor activation")
-        if wp == "B":
-            full = _xnor_matmul(x, wt).to(torch.float32)
-            if op == "F":
-                full = full * x.scale * wt.scale.reshape(1, -1)
-            # op == "B": both positive scales are elided under the BIN
-        else:  # BF?: ±1 activation times fp weight
-            full = bitops.unpack_pm1(x.packed, x.n) @ wt
-            if op == "F":
-                full = full * x.scale
+        if xa == "F":
+            if isinstance(x, BinTensor):
+                raise TypeError(f"BMM.{variant} takes an fp activation")
+            w_eff = dequantize(wt).T if wp == "B" else wt
+            full = x @ w_eff
+        else:
+            if not isinstance(x, BinTensor):
+                raise TypeError(f"BMM.{variant} takes a BinTensor activation")
+            if wp == "B":
+                full = _xnor_matmul(x, wt).to(torch.float32)
+                if op == "F":
+                    full = full * x.scale * wt.scale.reshape(1, -1)
+                # op == "B": both positive scales are elided under the BIN
+            else:  # BF?: ±1 activation times fp weight
+                full = bitops.unpack_pm1(x.packed, x.n) @ wt
+                if op == "F":
+                    full = full * x.scale
 
-    if op == "F":
-        return full
-    scale = full.abs().mean(dim=-1, keepdim=True) if out_scale \
-        else full.new_ones((full.shape[0], 1))
-    return BinTensor(packed=bin_op(full, axis=-1), scale=scale,
-                     n=full.shape[-1])
+        if op == "F":
+            return full
+        scale = full.abs().mean(dim=-1, keepdim=True) if out_scale \
+            else full.new_ones((full.shape[0], 1))
+        return BinTensor(packed=bin_op(full, axis=-1), scale=scale,
+                         n=full.shape[-1])
 
 
 def bmm_reference_fp(x: torch.Tensor, w: torch.Tensor,

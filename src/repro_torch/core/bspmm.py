@@ -22,11 +22,12 @@ from typing import Callable, Optional, Union
 
 import torch
 
-from ..kernels import ops
+from ..kernels import counting, ops
 from .binarize import BinTensor, bin_op
 from .frdc import FRDCMatrix
 
 BSPMM_VARIANTS = ("FBF", "FBB", "BBF", "BBB")
+_SPAN = {v: "bspmm." + v for v in BSPMM_VARIANTS}   # ``counting.span`` names
 TRINARY_DEFAULT = "s3_two_popc"
 
 # Pluggable aggregation stages (fp, bits), consulted at call time: fp(adj, x)
@@ -60,36 +61,38 @@ def bspmm(adj: FRDCMatrix, x: Union[torch.Tensor, BinTensor], variant: str,
     """Dispatch a BSpMM variant. ``x`` fp (N,F) for F??, BinTensor for B??."""
     if variant not in BSPMM_VARIANTS:
         raise ValueError(f"unknown BSpMM variant {variant!r}")
-    xa, _, op = variant
-    fp_backend, bits_backend = _BACKENDS.get()
+    with counting.span(_SPAN[variant]):
+        xa, _, op = variant
+        fp_backend, bits_backend = _BACKENDS.get()
 
-    if xa == "F":
-        full = (fp_backend or ops.bspmm_fp)(adj, x)
-        n_feat = x.shape[-1]
-    else:
-        if not isinstance(x, BinTensor):
-            raise TypeError(f"BSpMM.{variant} takes a BinTensor activation")
-        n_feat = x.n
-        counts = (bits_backend or _counts)(adj, x.packed, trinary_mode)
-        counts = counts[:, :n_feat].to(torch.float32)
-        if op == "F":
-            # the paper's approximation: positive scales re-applied as a
-            # global mean factor after the bit aggregation (§3.1.2); copied
-            # from the reference as it is, not padding-invariant
-            full = counts * x.scale.mean()
-            if adj.row_scale is not None:
-                full = full * adj.row_scale[:, None]
-            if adj.col_scale is not None:
-                full = full * adj.col_scale.mean()
+        if xa == "F":
+            full = (fp_backend or ops.bspmm_fp)(adj, x)
+            n_feat = x.shape[-1]
         else:
-            full = counts   # every scale is positive -> elided by BIN
+            if not isinstance(x, BinTensor):
+                raise TypeError(
+                    f"BSpMM.{variant} takes a BinTensor activation")
+            n_feat = x.n
+            counts = (bits_backend or _counts)(adj, x.packed, trinary_mode)
+            counts = counts[:, :n_feat].to(torch.float32)
+            if op == "F":
+                # the paper's approximation: positive scales re-applied as
+                # a global mean factor after the bit aggregation (§3.1.2);
+                # copied from the reference as it is, not padding-invariant
+                full = counts * x.scale.mean()
+                if adj.row_scale is not None:
+                    full = full * adj.row_scale[:, None]
+                if adj.col_scale is not None:
+                    full = full * adj.col_scale.mean()
+            else:
+                full = counts   # every scale is positive -> elided by BIN
 
-    if op == "F":
-        return full
-    scale = full.abs().mean(dim=-1, keepdim=True) if out_scale \
-        else full.new_ones((full.shape[0], 1))
-    return BinTensor(packed=bin_op(full[:, :n_feat].contiguous(), axis=-1),
-                     scale=scale, n=n_feat)
+        if op == "F":
+            return full
+        scale = full.abs().mean(dim=-1, keepdim=True) if out_scale \
+            else full.new_ones((full.shape[0], 1))
+        return BinTensor(packed=bin_op(full[:, :n_feat].contiguous(), axis=-1),
+                         scale=scale, n=n_feat)
 
 
 def spmm_reference_fp(adj_dense: torch.Tensor,

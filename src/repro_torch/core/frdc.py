@@ -21,6 +21,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..kernels import counting
+
 TILE = 4                # fine tile side (paper's 4x4 choice)
 GROUP = 8               # tiles per group: 8 * 4 = 32 columns = one word
 GROUP_COLS = TILE * GROUP  # 32
@@ -77,7 +79,15 @@ def from_coo(rows: np.ndarray, cols: np.ndarray, n_rows: int, n_cols: int,
              row_scale: Optional[np.ndarray] = None,
              col_scale: Optional[np.ndarray] = None,
              device="cuda") -> FRDCMatrix:
-    """Build FRDC from an edge list on the host, then move it to ``device``."""
+    """Build FRDC from an edge list on the host, then move it to ``device``.
+    Records the set-up span ``frdc.from_coo`` around its phases
+    ``frdc.tiles``, ``frdc.groups`` and ``frdc.upload``."""
+    with counting.setup_span("frdc.from_coo"):
+        return _from_coo(rows, cols, n_rows, n_cols, row_scale, col_scale,
+                         device)
+
+
+def _from_coo(rows, cols, n_rows, n_cols, row_scale, col_scale, device):
     rows = np.asarray(rows, np.int64)
     cols = np.asarray(cols, np.int64)
     if rows.size and (rows.max() >= n_rows or cols.max() >= n_cols):
@@ -85,60 +95,65 @@ def from_coo(rows: np.ndarray, cols: np.ndarray, n_rows: int, n_cols: int,
     n_tr = -(-n_rows // TILE)
     n_tc = -(-n_cols // TILE)
 
-    tile_r, in_r = np.divmod(rows, TILE)
-    tile_c, in_c = np.divmod(cols, TILE)
-    tile_id = tile_r * n_tc + tile_c
-    uniq, inv = np.unique(tile_id, return_inverse=True)
-    bits = np.zeros(uniq.shape[0], np.uint16)
-    np.bitwise_or.at(bits, inv,
-                     (np.uint16(1) << (in_r * TILE + in_c).astype(np.uint16)))
-    utile_r = (uniq // n_tc).astype(np.int64)
-    utile_c = (uniq % n_tc).astype(np.int64)
-    # np.unique sorts tile_id == (tile_r, tile_c) lexicographically: CSR order
-    row_counts = np.bincount(utile_r, minlength=n_tr)
-    grp_counts = -(-row_counts // GROUP)
-    G = max(int(grp_counts.sum()), 1)  # keep shapes non-empty
+    with counting.setup_span("frdc.tiles"):
+        tile_r, in_r = np.divmod(rows, TILE)
+        tile_c, in_c = np.divmod(cols, TILE)
+        tile_id = tile_r * n_tc + tile_c
+        uniq, inv = np.unique(tile_id, return_inverse=True)
+        bits = np.zeros(uniq.shape[0], np.uint16)
+        np.bitwise_or.at(bits, inv, (np.uint16(1) << (
+            in_r * TILE + in_c).astype(np.uint16)))
+        utile_r = (uniq // n_tc).astype(np.int64)
+        utile_c = (uniq % n_tc).astype(np.int64)
 
-    tiles = np.zeros((G, GROUP), np.int32)
-    col_idx = np.zeros((G, GROUP), np.int32)
-    group_row = np.zeros((G,), np.int32)
-    group_first = np.zeros((G,), np.int32)
-    grp_ptr = np.zeros(n_tr + 1, np.int32)
+    with counting.setup_span("frdc.groups"):
+        # np.unique sorts tile_id == (tile_r, tile_c) lexicographically:
+        # CSR order
+        row_counts = np.bincount(utile_r, minlength=n_tr)
+        grp_counts = -(-row_counts // GROUP)
+        G = max(int(grp_counts.sum()), 1)  # keep shapes non-empty
 
-    row_ptr = np.zeros(n_tr + 1, np.int64)
-    np.cumsum(row_counts, out=row_ptr[1:])
-    g = 0
-    for r in range(n_tr):
-        grp_ptr[r] = g
-        lo, hi = row_ptr[r], row_ptr[r + 1]
-        nt = hi - lo
-        if nt == 0:
-            continue
-        ng = -(-nt // GROUP)
-        row_tiles = np.zeros(ng * GROUP, np.int32)
-        row_cols = np.zeros(ng * GROUP, np.int32)
-        row_tiles[:nt] = bits[lo:hi]
-        row_cols[:nt] = utile_c[lo:hi]
-        tiles[g:g + ng] = row_tiles.reshape(ng, GROUP)
-        col_idx[g:g + ng] = row_cols.reshape(ng, GROUP)
-        group_row[g:g + ng] = r
-        group_first[g] = 1
-        g += ng
-    grp_ptr[n_tr] = g
-    if g == 0:  # degenerate: single zero group mapped to row 0
-        group_first[0] = 1
+        tiles = np.zeros((G, GROUP), np.int32)
+        col_idx = np.zeros((G, GROUP), np.int32)
+        group_row = np.zeros((G,), np.int32)
+        group_first = np.zeros((G,), np.int32)
+        grp_ptr = np.zeros(n_tr + 1, np.int32)
+
+        row_ptr = np.zeros(n_tr + 1, np.int64)
+        np.cumsum(row_counts, out=row_ptr[1:])
+        g = 0
+        for r in range(n_tr):
+            grp_ptr[r] = g
+            lo, hi = row_ptr[r], row_ptr[r + 1]
+            nt = hi - lo
+            if nt == 0:
+                continue
+            ng = -(-nt // GROUP)
+            row_tiles = np.zeros(ng * GROUP, np.int32)
+            row_cols = np.zeros(ng * GROUP, np.int32)
+            row_tiles[:nt] = bits[lo:hi]
+            row_cols[:nt] = utile_c[lo:hi]
+            tiles[g:g + ng] = row_tiles.reshape(ng, GROUP)
+            col_idx[g:g + ng] = row_cols.reshape(ng, GROUP)
+            group_row[g:g + ng] = r
+            group_first[g] = 1
+            g += ng
+        grp_ptr[n_tr] = g
+        if g == 0:  # degenerate: single zero group mapped to row 0
+            group_first[0] = 1
 
     def dev(a, dtype=None):
         if a is None:
             return None
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
-    return FRDCMatrix(
-        tiles=dev(tiles), col_idx=dev(col_idx), group_row=dev(group_row),
-        group_first=dev(group_first), grp_ptr=dev(grp_ptr),
-        n_rows=int(n_rows), n_cols=int(n_cols), nnz=int(rows.size),
-        row_scale=dev(row_scale, np.float32),
-        col_scale=dev(col_scale, np.float32))
+    with counting.setup_span("frdc.upload"):
+        return FRDCMatrix(
+            tiles=dev(tiles), col_idx=dev(col_idx), group_row=dev(group_row),
+            group_first=dev(group_first), grp_ptr=dev(grp_ptr),
+            n_rows=int(n_rows), n_cols=int(n_cols), nnz=int(rows.size),
+            row_scale=dev(row_scale, np.float32),
+            col_scale=dev(col_scale, np.float32))
 
 
 def from_dense(a: np.ndarray, **kw) -> FRDCMatrix:

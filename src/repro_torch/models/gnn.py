@@ -35,6 +35,7 @@ from ..core import abstraction, frdc
 from ..core.binarize import BinTensor, straight_through_sign
 from ..core.bmm import bmm, quantize_act, quantize_weight
 from ..core.bspmm import bspmm
+from ..kernels import counting
 from ..optim.optimizer import AdamW
 
 
@@ -248,21 +249,24 @@ class _BNTap:
         self._i = 0
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        if self.frozen is not None:
-            s = self.frozen[self._i]
-            self._i += 1
-        else:
-            s = bn_stats(x)
-            self.collected.append(s)
-        return batch_norm(x, stats=s)
+        with counting.span("bn"):
+            if self.frozen is not None:
+                s = self.frozen[self._i]
+                self._i += 1
+            else:
+                s = bn_stats(x)
+                self.collected.append(s)
+            return batch_norm(x, stats=s)
 
 
 def _run_bitgnn_layers(layers: list, x, mats: dict,
                        bn_stats: Optional[tuple], return_bn_stats: bool):
     bn = _BNTap(bn_stats)
     h = x
-    for fn in layers:
-        h = fn(bn, h, mats)
+    with counting.span("gnn.forward", new_forward=True):
+        for fn in layers:
+            with counting.span("gnn.layer"):
+                h = fn(bn, h, mats)
     if return_bn_stats:
         return h, tuple(bn.collected)
     return h
